@@ -8,26 +8,39 @@ Phases, one line each; any failure raises, so the script exits nonzero:
 
 0. the card: ``torch.cuda.is_available()`` or raise; name and power limit
    as ``nvidia-smi`` reports them;
-1. build the hand-written kernels of ``stereoscene_torch/csrc`` with nvcc;
+1. build the hand-written kernels of ``stereoscene_torch/csrc`` with nvcc,
+   one process per source, all at once;
 2. K1 (fused GWC + depth warp) against its plain PyTorch version at the
-   flagship shapes, fp32 and bf16, plus boundary positions;
+   flagship shapes, fp32 and bf16, plus boundary positions; then its
+   autograd Function's gradients against plain autograd (fp32, 1e-5);
 3. K3 (fused lift + splat) and K2 (sorted splat) against their plain
    versions on the real group-8 splat plan of the flagship calibration;
-4. the flagship forward (EfficientNet-b7, 384x1280, D = 112, the 64x64x8
+4. K4 (implicit-GEMM conv3d) against its plain version at the three
+   flagship shapes, fp32 (1e-4 of max|ref|) and bf16 (2e-2 of max|ref|);
+5. the flagship forward (EfficientNet-b7, 384x1280, D = 112, the 64x64x8
    grid of 0.8 m voxels) in fp32 with and without the kernels, seeded
    random weights;
-5. serving: the bf16 model answers three requests (different images, one
+6. serving: the bf16 model answers three requests (different images, one
    calibration) through ``BEVDepthOccupancy.infer`` -> [256, 256, 32]
-   class maps; per-stage and per-frame milliseconds.
+   class maps; per-stage and per-frame milliseconds;
+7. training: one synthetic labelled batch from the seed; (a) one fp32 step
+   built with the kernels (K1, K4) and one without, losses within 1e-4 and
+   every gradient leaf within 2% of its scale (floor 1e-4 of the global
+   scale); (b) six bf16 steps with the kernels: finite, falling losses, ms
+   per step and peak memory.
 
-Then one JSON line with each kernel of the path (its launches in the serving
-run, its error and times from phases 2-3) and, last, the ok line. Every
-number is measured in this run on this card. No JAX is imported.
+Then one JSON line with each kernel (its launches in the serving and bf16
+training runs, its error, its times and its bound from phases 2-4; the
+bound is the larger of the bytes it must move over 3.35 TB/s and its
+operations over the H100 SXM datasheet's peak for their type, 989 TFLOP/s
+bf16 dense, 67 TFLOP/s fp32) and, last, the ok line. Every time is
+measured in this run on this card. No JAX is imported.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -38,6 +51,14 @@ import torch
 SEED = 0
 FX, BASELINE = 707.0, 0.54  # bench.py:55-82 flagship calibration
 N_REQUESTS = 3
+N_TRAIN_STEPS = 6
+# H100 SXM datasheet peaks (dense, without sparsity)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the flagship's K4 convs: (Ci, D, H, W, Co) and launches per forward
+K4_SHAPES = {"hourglass conv2": ((64, 56, 24, 80, 64), 4),
+             "hourglass conv4": ((128, 28, 12, 40, 128), 4),
+             "resnet3d stage 1": ((128, 64, 64, 8, 128), 4)}
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -55,6 +76,19 @@ def cuda_ms(fn, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float, dtype) -> dict:
+    """The least time for the work: bytes over the memory rate or
+    operations over the peak rate of ``dtype``, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -127,12 +161,29 @@ def phase_gwc(cfg, dev, gwc) -> dict:
     plain_ms = cuda_ms(lambda: run(lb, rb, pos, torch.bfloat16, False))
     ms32 = cuda_ms(lambda: run(left, right, pos, torch.float32, True))
     plain_ms32 = cuda_ms(lambda: run(left, right, pos, torch.float32, False))
+    out = run(lb, rb, pos, torch.bfloat16, True)
+    # two lerp taps of a C-channel product each, then the lerp
+    ops = 2 * 2 * out.numel() * left.shape[-1] // 32 + 3 * out.numel()
+    k1 = dict(max_abs_err=max(err32, err_edge), ms=ms, plain_ms=plain_ms,
+              library_ms=None,
+              **bound(nbytes(lb, rb, pos, out), ops, torch.bfloat16))
     print(f"phase 2 K1 gwc_warp [1, {d}, {fh}, {fw}, 32]: max abs err fp32 "
           f"{err32:.3e} boundary {err_edge:.3e} bf16 {err16:.3e}; median of "
-          f"20: bf16 kernel {ms:.4f} ms plain {plain_ms:.4f} ms, fp32 kernel "
+          f"20: bf16 kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+          f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}), fp32 kernel "
           f"{ms32:.4f} ms plain {plain_ms32:.4f} ms", flush=True)
-    return {"max_abs_err": max(err32, err_edge), "ms": ms,
-            "plain_ms": plain_ms}
+
+    g = torch.randn(out.shape, generator=gen, device=dev)
+    ins = [t.clone().requires_grad_() for t in (left, right)]
+    (run(*ins, pos, torch.float32, True) * g).sum().backward()
+    ref = [t.clone().requires_grad_() for t in (left, right)]
+    (gwc.gwc_warp_plain(*ref, pos, d, 32) * g).sum().backward()
+    errs = [check_close(f"gwc backward d{name}", a.grad, b.grad, 1e-5, 1e-5)
+            for name, a, b in zip(("left", "right"), ins, ref)]
+    print(f"phase 2 K1 backward (autograd Function, fp32): max abs err "
+          f"dleft {errs[0]:.3e} dright {errs[1]:.3e} vs plain autograd",
+          flush=True)
+    return k1
 
 
 def phase_splat(model, cpu_batch, dev, pool):
@@ -177,15 +228,74 @@ def phase_splat(model, cpu_batch, dev, pool):
                        1e-4 * float(want2.abs().max()), 0.0)
     ms2, plain2 = cuda_ms(lambda: sorted_(True)), cuda_ms(
         lambda: sorted_(False))
+    overflow = rs1_d.long().clamp(max=nvox)  # pad rows -> a dropped bucket
+    acc = torch.zeros(nvox + 1, c, device=dev)
+    lib2 = cuda_ms(lambda: acc.index_add_(0, overflow, vals))
     rows8 = int((ranks8 < nvox).sum())
+    k3 = dict(max_abs_err=err3, ms=ms3, plain_ms=plain3, library_ms=None,
+              **bound(nbytes(dp, feat, order, bounds, want),
+                      2 * len(order) * c, torch.float32))
+    k2 = dict(max_abs_err=err2, ms=ms2, plain_ms=plain2, library_ms=lib2,
+              **bound(nbytes(vals, rs1_d, want2), vals.numel(),
+                      torch.float32))
     print(f"phase 3 K3 lift_splat_fused: group-{group} plan of "
           f"{len(order)} rows ({rows8} in voxels = {rows8 // group} groups, "
           f"{int((ranks < nvox).sum())} in-bounds points) -> [{nvox}, {c}]; "
           f"max abs err {err3:.3e} (max|ref| {scale:.3e}); median of 20: "
-          f"kernel {ms3:.4f} ms plain {plain3:.4f} ms | K2 splat_sorted: "
-          f"group-1 plan of {len(rs1)} rows; max abs err {err2:.3e}; kernel "
-          f"{ms2:.4f} ms plain {plain2:.4f} ms", flush=True)
-    return {"max_abs_err": err3, "ms": ms3, "plain_ms": plain3}
+          f"kernel {ms3:.4f} ms plain {plain3:.4f} ms bound "
+          f"{k3['bound_ms']:.4f} ms | K2 splat_sorted: group-1 plan of "
+          f"{len(rs1)} rows; max abs err {err2:.3e}; kernel {ms2:.4f} ms "
+          f"plain {plain2:.4f} ms index_add_ {lib2:.4f} ms bound "
+          f"{k2['bound_ms']:.4f} ms", flush=True)
+    return k3, k2
+
+
+def phase_conv3d(dev, conv3d) -> dict:
+    """K4 at the flagship's three conv shapes, fp32 and bf16; times in
+    bf16 (the training step's dtype) for the kernel on a channels-last
+    input, its plain version and cuDNN's ``F.conv3d`` on channels-last
+    tensors. The kernels-line entry sums the 12 launches of a forward."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    worst, parts, moved, ops = 0.0, [], 0, 0
+    torch.backends.cudnn.allow_tf32 = False
+    for name, ((ci, d, h, w, co), count) in K4_SHAPES.items():
+        x = torch.randn(1, ci, d, h, w, generator=gen, device=dev)
+        wt = torch.randn(co, ci, 3, 3, 3, generator=gen, device=dev)
+        wt = wt * ci ** -0.5
+        errs = {}
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            xd, wd = x.to(dtype), wt.to(dtype)
+            want = conv3d.conv3d_s1_plain(xd, wd)
+            got = conv3d.conv3d_s1(xd, wd, use_kernel=True)
+            errs[dtype] = check_close(
+                f"conv3d {name} {dtype}", got, want,
+                tol * float(want.float().abs().max()), 0.0)
+        xp, wb = x.bfloat16(), wt.bfloat16()
+        xb = xp.contiguous(memory_format=torch.channels_last_3d)
+        wcl = wb.contiguous(memory_format=torch.channels_last_3d)
+        ms = cuda_ms(lambda: conv3d.conv3d_s1(xb, wb, use_kernel=True))
+        plain = cuda_ms(lambda: conv3d.conv3d_s1_plain(xp, wb))
+        lib = cuda_ms(lambda: torch.nn.functional.conv3d(xb, wcl, padding=1))
+        y = conv3d.conv3d_s1(xb, wb, use_kernel=True)
+        b = bound(nbytes(xb, wb, y), 2 * y.numel() * 27 * ci, torch.bfloat16)
+        for key, value in (("ms", ms), ("plain_ms", plain),
+                           ("library_ms", lib)):
+            total[key] += count * value
+        moved += count * nbytes(xb, wb, y)
+        ops += count * 2 * y.numel() * 27 * ci
+        worst = max(worst, *errs.values())
+        parts.append(f"{name} [{ci}->{co} at {d}x{h}x{w}] x{count}: max abs "
+                     f"err fp32 {errs[torch.float32]:.3e} bf16 "
+                     f"{errs[torch.bfloat16]:.3e}; bf16 kernel {ms:.4f} ms "
+                     f"plain {plain:.4f} ms cuDNN {lib:.4f} ms bound "
+                     f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    total.update(bound(moved, ops, torch.bfloat16))
+    print("phase 4 K4 conv3d_s1 (median of 20): " + " | ".join(parts)
+          + f" | per forward ({ops / 1e9:.1f} GFLOP): kernel "
+          f"{total['ms']:.3f} ms, cuDNN {total['library_ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.4f} ms ({total['bound_by']})", flush=True)
+    return dict(max_abs_err=worst, **total)
 
 
 def phase_fp32_forward(model, batch, build) -> None:
@@ -212,7 +322,7 @@ def phase_fp32_forward(model, batch, build) -> None:
         raise AssertionError(
             f"fp32 forward: kernels vs plain depth_prob {dp_err:.3e} (limit "
             f"2e-4), logits / max|ref| {logit_err:.3e} (limit 2e-3)")
-    print(f"phase 4 fp32 flagship forward: output_voxels "
+    print(f"phase 5 fp32 flagship forward: output_voxels "
           f"{list(ref.shape)}, depth_prob {list(without['depth_prob'].shape)}"
           f"; kernels vs plain: depth_prob max abs err {dp_err:.3e}, logits "
           f"max abs err / max|ref| {logit_err:.3e}; launches {counts}",
@@ -273,7 +383,7 @@ def phase_serve(model, cfg, dev, build, card: str) -> dict:
             f"serving: {model.plan_cache.misses} plans built for one "
             "calibration")
     med = [statistics.median(s[j] for s in stages) for j in range(3)]
-    print(f"phase 5 bf16 serving on {card}: {N_REQUESTS} requests (+1 "
+    print(f"phase 6 bf16 serving on {card}: {N_REQUESTS} requests (+1 "
           f"warm-up) {cfg.input_size[0]}x{cfg.input_size[1]} stereo -> "
           f"[256, 256, 32] class maps in "
           f"[0, {cfg.out_channel}); median device ms images {med[0]:.3f} "
@@ -285,15 +395,112 @@ def phase_serve(model, cfg, dev, build, card: str) -> dict:
     return launches
 
 
+def train_batch(cfg, seed: int, dev) -> dict:
+    """The flagship frame with seeded labels: gt_occ [1, 256, 256, 32] in
+    [0, 20) with 10% ignore (255), and a sparse LiDAR-like gt_depth
+    [1, 1, 384, 1280] (7% of pixels, depths in the model's range)."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = flagship_batch(cfg, seed, "cpu")
+    occ = torch.randint(0, 20, (1, 256, 256, 32), generator=gen)
+    ignore = torch.rand(occ.shape, generator=gen) < 0.1
+    batch["gt_occ"] = torch.where(ignore, 255, occ).to(torch.int32)
+    h, w = cfg.input_size
+    hit = torch.rand(1, 1, h, w, generator=gen) < 0.07
+    lo, hi, _ = cfg.dbound
+    depth = lo + (hi - lo) * torch.rand(1, 1, h, w, generator=gen)
+    batch["gt_depth"] = depth * hit
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def phase_train(cfg, dev, build, train, seeded_init_, model_cls) -> dict:
+    """(a) fp32 loss and gradients with the kernels and without; (b) six
+    bf16 steps with the kernels. Returns the launches of (b)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    loss_cfg = train.LossConfig()
+    batch = train_batch(cfg, SEED + 20, dev)
+    runs = []
+    for kernels in (True, False):
+        model = model_cls(cfg, conv3d_kernel=kernels)
+        seeded_init_(model, SEED)
+        state = train.create_train_state(model)
+        build.launch_counts.clear()
+        total, losses, grads = train.loss_and_grads(
+            state, batch, loss_cfg, use_kernel=kernels,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        runs.append((total, losses, grads, dict(build.launch_counts),
+                     [n for n, _ in state.trainable]))
+        del model, state
+    (tk, lk, gk, ck, names), (tp, lp, gp, cp, _) = runs
+    if ck.get("gwc_warp") != 1 or ck.get("conv3d_s1", 0) < 12 or cp:
+        raise AssertionError(f"fp32 step launches: kernels {ck}, plain {cp}")
+    if not (torch.isfinite(tk)
+            and abs(float(tk - tp)) <= 1e-4 * abs(float(tp))):
+        raise AssertionError(f"fp32 step: loss {float(tk)} with the kernels, "
+                             f"{float(tp)} without")
+    scale = max(float(g.abs().max()) for g in gp)
+    bad = []
+    for name, a, b in zip(names, gk, gp):
+        leaf = max(float(a.abs().max()), float(b.abs().max()), 1e-6)
+        err = float((a - b).abs().max())
+        if not (math.isfinite(err) and err <= max(2e-2 * leaf, 1e-4 * scale)):
+            bad.append((name, err / leaf))
+    if bad:
+        worst = sorted(bad, key=lambda b: -b[1])[:5]
+        raise AssertionError(f"fp32 step: {len(bad)} of {len(names)} grad "
+                             f"leaves off, worst {worst}")
+    terms = {k: round(float(v), 5) for k, v in lk.items()}
+    print(f"phase 7a fp32 train step, kernels vs plain: loss {float(tk):.6f} "
+          f"vs {float(tp):.6f} ({terms}); "
+          f"{len(names)} grad leaves within 2% (floor {1e-4 * scale:.2e}); "
+          f"launches {ck}", flush=True)
+    del runs, gk, gp
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    model = model_cls(cfg, conv3d_kernel=True)
+    seeded_init_(model, SEED)
+    state = train.create_train_state(model)
+    step = train.make_train_step(loss_cfg, bf16=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    build.launch_counts.clear()
+    for _ in range(N_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        # the same dropout and drop-path masks every step: one batch, so
+        # the loss must fall
+        state, logs = step(state, batch,
+                           torch.Generator(device=dev).manual_seed(SEED))
+        losses.append(float(logs["loss_total"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"bf16 steps: losses {losses}")
+    per_step = {k: v / N_TRAIN_STEPS for k, v in launches.items()}
+    if per_step.get("gwc_warp") != 1 or per_step.get("conv3d_s1", 0) < 12:
+        raise AssertionError(f"bf16 steps: launches {launches}")
+    print(f"phase 7b bf16 training, {N_TRAIN_STEPS} steps of B = 1 at "
+          f"{cfg.input_size[0]}x{cfg.input_size[1]}, EfficientNet-"
+          f"{cfg.backbone_arch} with_cp {cfg.backbone_with_cp}: losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}; ms per step "
+          f"{statistics.median(times[1:]):.1f} (median of the last "
+          f"{N_TRAIN_STEPS - 1}; samples "
+          f"{', '.join(f'{t:.1f}' for t in times)}); peak memory {peak:.2f} GiB; launches {launches}", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
     from stereoscene_torch import _build
+    from stereoscene_torch.engine import train
     from stereoscene_torch.models.detector import (
         BEVDepthOccupancy,
         DetectorConfig,
     )
-    from stereoscene_torch.ops import gwc, voxel_pool
+    from stereoscene_torch.ops import conv3d, gwc, voxel_pool
     from stereoscene_torch.utils.weights import seeded_init_
 
     smi = subprocess.run(
@@ -320,25 +527,38 @@ def main() -> None:
 
     model = BEVDepthOccupancy(cfg)
     seeded_init_(model, SEED)
-    k3 = phase_splat(model, flagship_batch(cfg, SEED, "cpu"), dev, voxel_pool)
+    k3, k2 = phase_splat(model, flagship_batch(cfg, SEED, "cpu"), dev,
+                         voxel_pool)
+    k4 = phase_conv3d(dev, conv3d)
 
-    model.to(dev)
     phase_fp32_forward(model, flagship_batch(cfg, SEED, dev), _build)
+    serving = phase_serve(model, cfg, dev, _build, card)
+    del model
+    torch.cuda.empty_cache()
 
-    launches = phase_serve(model, cfg, dev, _build, card)
+    training = phase_train(DetectorConfig(), dev, _build, train,
+                           seeded_init_, BEVDepthOccupancy)
+    for path, counts, needs in (("serving", serving,
+                                 ("gwc_warp", "lift_splat_fused")),
+                                ("training", training,
+                                 ("gwc_warp", "conv3d_s1"))):
+        for name in needs:
+            if counts.get(name, 0) < 1:
+                raise AssertionError(f"{name} never launched in {path}")
     kernels = [
-        dict(name="gwc_warp", route="cuda",
-             source="stereoscene_torch/csrc/gwc_warp.cu",
-             replaces="stereoscene_tpu/ops/pallas_gwc.py:144",
-             launches=launches.get("gwc_warp", 0), **k1),
-        dict(name="lift_splat_fused", route="cuda",
+        dict(name="gwc_warp", source="stereoscene_torch/csrc/gwc_warp.cu",
+             replaces="stereoscene_tpu/ops/pallas_gwc.py:144", **k1),
+        dict(name="splat_sorted", source="stereoscene_torch/csrc/splat.cu",
+             replaces="stereoscene_tpu/ops/pallas_splat.py:95", **k2),
+        dict(name="lift_splat_fused",
              source="stereoscene_torch/csrc/splat.cu",
-             replaces="stereoscene_tpu/ops/pallas_splat_fused.py:104",
-             launches=launches.get("lift_splat_fused", 0), **k3),
+             replaces="stereoscene_tpu/ops/pallas_splat_fused.py:104", **k3),
+        dict(name="conv3d_s1", source="stereoscene_torch/csrc/conv3d.cu",
+             replaces="stereoscene_tpu/ops/pallas_conv3d.py:102", **k4),
     ]
     for k in kernels:
-        if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} never launched while serving")
+        k["route"] = "cuda"
+        k["launches"] = serving.get(k["name"], 0) + training.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

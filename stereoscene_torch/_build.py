@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 At first use ``load_kernels()`` compiles every ``csrc/*.cu`` with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, under
-``_kernels_build/`` (listed in ``.gitignore``), and loads it with ``ctypes``.
+``sm_90a``, one nvcc process per source, all started together, and links the
+objects into one shared library with a plain C interface, under
+``_kernels_build/`` (listed in ``.gitignore``); it loads it with ``ctypes``.
 The library name carries a hash of the sources, so an edited kernel is
 rebuilt and a stale build is never loaded. Nothing here runs at import time:
 the CPU test suite imports every module on a host with no ``nvcc``.
@@ -31,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -46,6 +47,8 @@ SIGNATURES = {
     "stereoscene_splat_fused": [_P] * 5 + [_I] * 5 + [_P],
     # vals, bounds, out, num_voxels, C, stream
     "stereoscene_splat_sorted": [_P] * 3 + [_I] * 2 + [_P],
+    # x, w, y, B, D, H, W, Ci, Co, bf16, stream
+    "stereoscene_conv3d_s1": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 launch_counts: "collections.Counter[str]" = collections.Counter()
@@ -87,18 +90,33 @@ def load_kernels() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
+        tag = f"{out.stem}.{os.getpid()}"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            jobs.append(([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         obj))
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd, _ in jobs]
+        logs = [p.communicate()[0] for p in procs]
+        for (cmd, _), p, log in zip(jobs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{log}")
+        tmp = BUILD_DIR / f"{tag}.so.tmp"
+        link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o in jobs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
         build_seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        build_log = proc.stdout + proc.stderr
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        build_log = "".join(logs)
+        for _, obj in jobs:
+            obj.unlink()
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():

@@ -7,7 +7,8 @@ depth path = 3 BasicBlocks -> ASPP (dilations 1/6/12/18 + pooled branch)
 -> DCNv1 (groups 4, zero-init offset conv) -> 1x1 to D logits. Output is
 the channel concat [depth logits | context]. The ASPP branches are plain
 dilated convolutions (the JAX package's tap-matmul lowering is a TPU
-layout choice for the same math).
+layout choice for the same math). In training mode the ASPP output goes
+through dropout at rate 0.5 (depth_net.py:137 of the JAX package).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.deform_conv import deform_conv2d
-from .layers import BatchNorm, GroupNorm, Mlp, SELayer
+from .layers import BatchNorm, GroupNorm, Mlp, SELayer, dropout
 
 
 class BasicBlock2d(nn.Module):
@@ -49,8 +50,9 @@ class _ASPPModule(nn.Module):
 
 
 class ASPP(nn.Module):
-    def __init__(self, cin: int, mid: int):
+    def __init__(self, cin: int, mid: int, dropout_rate: float = 0.5):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.aspp1 = _ASPPModule(cin, mid, 1, 0, 1)
         self.aspp2 = _ASPPModule(cin, mid, 3, 6, 6)
         self.aspp3 = _ASPPModule(cin, mid, 3, 12, 12)
@@ -62,11 +64,14 @@ class ASPP(nn.Module):
         self.conv1 = nn.Conv2d(mid * 5, mid, 1, bias=False)
         self.bn1 = BatchNorm(mid)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         xs = [self.aspp1(x), self.aspp2(x), self.aspp3(x), self.aspp4(x)]
         g = self.global_avg_pool(x)  # [N, mid, 1, 1], a constant map
         xs.append(g.expand(-1, -1, *xs[0].shape[-2:]))
-        return F.relu(self.bn1(self.conv1(torch.cat(xs, dim=1))))
+        y = F.relu(self.bn1(self.conv1(torch.cat(xs, dim=1))))
+        if self.training and self.dropout_rate > 0:
+            y = dropout(y, self.dropout_rate, generator)
+        return y
 
 
 class DeformConvPack(nn.Module):
@@ -111,10 +116,14 @@ class DepthNet(nn.Module):
             ASPP(mid, mid), DeformConvPack(mid),
             nn.Conv2d(mid, depth_channels, 1))
 
-    def forward(self, x, mlp_input):
+    def forward(self, x, mlp_input, generator=None):
+        """``generator`` seeds the ASPP dropout in training mode."""
         mlp_input = self.bn(mlp_input)
         x = self.reduce_conv(x)
         context = self.context_conv(
             self.context_se(x, self.context_mlp(mlp_input)))
-        depth = self.depth_conv(self.depth_se(x, self.depth_mlp(mlp_input)))
+        depth = self.depth_se(x, self.depth_mlp(mlp_input))
+        for layer in self.depth_conv:
+            depth = (layer(depth, generator) if isinstance(layer, ASPP)
+                     else layer(depth))
         return torch.cat([depth, context], dim=1)

@@ -12,7 +12,14 @@ The batch is the JAX package's dict (channels-last images, KITTI 3x4
 intrinsics; see ``BEVDepthOccupancy.forward``) as torch tensors on one
 device. ``use_kernel`` picks the hand-written CUDA kernels (K1
 ``fused_gwc_warp``, K3 ``lift_splat_fused``); None means "the kernels when
-the tensors are on CUDA".
+the tensors are on CUDA". The model is built with ``conv3d_kernel=True`` to
+send the hourglass and ResNet3D convs the JAX package's gate picks to K4
+(``layers.Conv3d``).
+
+Eval mode (the default) is inference, under ``torch.no_grad``; training
+mode (``model.train()``) is the JAX package's ``train=True``: BatchNorm on
+batch statistics, DropPath and dropout, gradients, and the dynamic-rank
+splat unless the batch carries a plan (detector.py:266-288).
 """
 
 from __future__ import annotations
@@ -36,11 +43,11 @@ from .second_fpn import SECONDFPN, SECONDFPN3D
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     """Static hyperparameters of the active stereoscene model; the same
-    fields and defaults as the JAX package's ``DetectorConfig``. Fields for
-    training-only features (checkpointing, drop path) are accepted and
-    ignored; the optional subsystems that are off in the scored config
-    (grid mask, imgseg, CRP3D, point supervision) are not ported and must
-    stay off."""
+    fields and defaults as the JAX package's ``DetectorConfig``. The
+    backbone's drop path and checkpointing act in training mode;
+    ``bev_with_cp`` is accepted and ignored. The optional subsystems that
+    are off in the scored config (grid mask, imgseg, CRP3D, point
+    supervision) are not ported and must stay off."""
 
     input_size: Tuple[int, int] = (384, 1280)
     downsample: int = 8
@@ -92,10 +99,12 @@ class DetectorConfig:
 
 
 class BEVDepthOccupancy(nn.Module):
-    """The scored inference graph. ``state_dict`` keys follow the
-    reference checkpoint layout."""
+    """The stereo occupancy model. ``state_dict`` keys follow the reference
+    checkpoint layout. It is built on ``device``, by default the CUDA card;
+    the CPU only when asked for."""
 
-    def __init__(self, cfg: DetectorConfig,
+    def __init__(self, cfg: DetectorConfig, device=None,
+                 conv3d_kernel: bool = False,
                  label_shape: Tuple[int, int, int] = (256, 256, 32)):
         super().__init__()
         off = [f for f in ("use_grid_mask", "imgseg", "crp3d",
@@ -105,20 +114,22 @@ class BEVDepthOccupancy(nn.Module):
                 f"stereoscene_torch does not port {off} yet")
         self.cfg = cfg
         self.label_shape = tuple(label_shape)
-        self.img_backbone = CustomEfficientNet(cfg.backbone_arch,
-                                               cfg.backbone_out_indices)
+        self.img_backbone = CustomEfficientNet(
+            cfg.backbone_arch, cfg.backbone_out_indices,
+            cfg.backbone_drop_path_rate, cfg.backbone_with_cp)
         self.img_neck = SECONDFPN(cfg.neck_in_channels, cfg.neck_out_channels,
                                   cfg.neck_upsample_strides)
         self.img_view_transformer = ViewTransformerLiftSplatShootVoxel(
             num_depth=cfg.num_depth, numC_input=sum(cfg.neck_out_channels),
             numC_Trans=cfg.numC_Trans, cam_channels=cfg.cam_channels,
             grid_shape=cfg.grid_shape, attention_chunk=cfg.attention_chunk,
-            splat_group=cfg.splat_group)
+            splat_group=cfg.splat_group, conv3d_kernel=conv3d_kernel)
         strides = tuple(cfg.voxel_strides) + (2,) * (
             len(cfg.voxel_channels) - len(cfg.voxel_strides))
         self.img_bev_encoder_backbone = CustomResNet3D(
             cfg.numC_Trans, cfg.voxel_channels, strides,
-            depth=cfg.resnet_depth, norm_groups=cfg.norm_groups)
+            depth=cfg.resnet_depth, norm_groups=cfg.norm_groups,
+            conv3d_kernel=conv3d_kernel)
         self.img_bev_encoder_neck = SECONDFPN3D(
             cfg.voxel_channels, cfg.voxel_out_channels,
             cfg.fpn3d_upsample_strides, cfg.norm_groups)
@@ -127,14 +138,16 @@ class BEVDepthOccupancy(nn.Module):
         self.frustum = torch.from_numpy(geometry.create_frustum(
             cfg.input_size, cfg.downsample, cfg.dbound))
         self.plan_cache = SplatPlanCache(self)
+        self.to(torch.device("cuda") if device is None else device)
         self.eval()
 
     # ---- stage 1: shared image encoder over both eyes ----
-    def encode_images(self, imgs: torch.Tensor):
+    def encode_images(self, imgs: torch.Tensor, generator=None):
         """imgs [B, 2, H, W, 3] -> (left, right) [B, C, fH, fW]."""
         b = imgs.shape[0]
         flat = imgs.transpose(0, 1).reshape((2 * b,) + imgs.shape[2:])
-        neck = self.img_neck(self.img_backbone(flat.permute(0, 3, 1, 2)))
+        feats = self.img_backbone(flat.permute(0, 3, 1, 2), generator)
+        neck = self.img_neck(feats)
         return neck[:b], neck[b:]
 
     # ---- geometry: voxel ranks of the LEFT camera's frustum ----
@@ -159,18 +172,23 @@ class BEVDepthOccupancy(nn.Module):
         return self.plan_cache.attach(batch)
 
     # ---- stage 2: stereo + mono + MIE + lift-splat ----
-    def view_transform(self, feat_left, feat_right, batch, use_kernel=None):
+    def view_transform(self, feat_left, feat_right, batch, use_kernel=None,
+                       generator=None):
         """-> (voxel features [B, C, X, Y, Z], depth_prob [B, D, fH, fW]);
-        ``batch`` must carry a plan (``attach_plan``)."""
+        the splat follows the batch's plan (``attach_plan``) or, without
+        one, the dynamic ranks of ``compute_ranks``."""
         mlp = geometry.get_mlp_input(
             batch["rots"], batch["trans"], batch["intrins"],
             batch["post_rots"], batch["post_trans"], batch["bda"],
         ).to(feat_left.dtype)
-        plan = (batch["splat_order"], batch["splat_ranks"],
-                batch["splat_bounds"])
+        if "splat_order" in batch:
+            plan = (batch["splat_order"], batch["splat_ranks"],
+                    batch["splat_bounds"])
+        else:
+            plan = self.compute_ranks(batch)
         return self.img_view_transformer(
             feat_left, feat_right, mlp[:, 0], mlp[:, 1], batch["calib"], plan,
-            use_kernel)
+            use_kernel, generator)
 
     # ---- stage 3: 3D encoder + head ----
     def bev_encode(self, voxel_feat):
@@ -179,20 +197,33 @@ class BEVDepthOccupancy(nn.Module):
             self.img_bev_encoder_backbone(voxel_feat))
         return self.pts_bbox_head(fused)
 
-    @torch.no_grad()
-    def forward(self, batch: Dict[str, torch.Tensor], use_kernel=None):
+    def forward(self, batch: Dict[str, torch.Tensor], use_kernel=None,
+                generator=None):
         """batch (channels-last, one device):
           imgs [B, 2, H, W, 3]; rots [B, 2, 3, 3]; trans [B, 2, 3];
           intrins [B, 2, 3, 4]; post_rots [B, 2, 3, 3]; post_trans [B, 2, 3];
           bda [B, 3, 3]; calib [B] (fx * baseline); optionally the plan
           (splat_order / splat_ranks / splat_bounds).
         Returns output_voxels [B, X, Y, Z, classes] and depth_prob
-        [B, D, fH, fW]."""
-        batch = self.attach_plan(batch)
-        dtype = next(self.parameters()).dtype
-        feat_left, feat_right = self.encode_images(batch["imgs"].to(dtype))
-        voxel_feat, depth_prob = self.view_transform(feat_left, feat_right,
-                                                     batch, use_kernel)
+        [B, D, fH, fW].
+
+        Eval mode: inference without autograd, in the parameters' dtype,
+        over the batch's plan (built and cached when missing). Training
+        mode: with autograd, in the images' dtype (the bf16 policy casts
+        them, ``engine.train``), over the batch's plan or else the dynamic
+        ranks; ``generator`` seeds DropPath and dropout."""
+        if self.training:
+            return self._forward(batch, batch["imgs"], use_kernel, generator)
+        with torch.no_grad():
+            batch = self.attach_plan(batch)
+            dtype = next(self.parameters()).dtype
+            return self._forward(batch, batch["imgs"].to(dtype), use_kernel,
+                                 None)
+
+    def _forward(self, batch, imgs, use_kernel, generator):
+        feat_left, feat_right = self.encode_images(imgs, generator)
+        voxel_feat, depth_prob = self.view_transform(
+            feat_left, feat_right, batch, use_kernel, generator)
         logits = self.bev_encode(voxel_feat)
         return {"output_voxels": logits.permute(0, 2, 3, 4, 1),
                 "depth_prob": depth_prob}

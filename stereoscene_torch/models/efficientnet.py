@@ -5,9 +5,15 @@ Compound width/depth scaling of the base layer table, TF-SAME adaptive
 padding, BN(eps 1e-3) + Swish, squeeze-excite on the expanded width, and
 multi-stage outputs by ``out_indices`` (0 = stem, 1..5 = block stages,
 6 = head conv). Keys follow the reference (mmcls ``CustomEfficientNet``:
-``layers.0`` stem, ``layers.1..5`` stages, ``layers.6`` head). Stochastic
-depth and activation checkpointing are training features and are not
-ported.
+``layers.0`` stem, ``layers.1..5`` stages, ``layers.6`` head).
+
+Training mode adds stochastic depth, its rate rising linearly over the
+blocks to ``drop_path_rate`` (efficientnet.py:453-457 of the JAX package),
+and with ``with_cp`` checkpoints each block with
+``torch.utils.checkpoint(use_reentrant=False)`` (the JAX package's
+``nn.remat``). The DropPath masks are drawn before a checkpointed block, so
+its recompute sees the same mask, and the recompute does not update the
+BatchNorm statistics a second time.
 """
 
 from __future__ import annotations
@@ -18,8 +24,9 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from .layers import BatchNorm
+from .layers import BatchNorm, drop_path, keep_mask
 
 # Base (b0) table per stage: (kernel, out_channels, se_ratio, stride,
 # expand_ratio) (ref: efficientnet.py:308-327 layer_settings['b']).
@@ -104,8 +111,8 @@ class ConvBNAct(nn.Module):
         self.bn = BatchNorm(cout, eps=1e-3)
         self.act = act
 
-    def forward(self, x):
-        x = self.bn(self.conv(x))
+    def forward(self, x, update_stats: bool = True):
+        x = self.bn(self.conv(x), update_stats)
         return F.silu(x) if self.act else x
 
 
@@ -127,12 +134,16 @@ class EffSELayer(nn.Module):
 
 
 class InvertedResidual(nn.Module):
-    """MBConv block (ref: efficientnet.py:112-229)."""
+    """MBConv block (ref: efficientnet.py:112-229). ``forward(x, keep)``
+    takes the block's DropPath mask [N] (None: no drop)."""
 
-    def __init__(self, cin, cout, kernel, stride, expand_ratio, se_ratio):
+    def __init__(self, cin, cout, kernel, stride, expand_ratio, se_ratio,
+                 drop_path_rate=0.0, with_cp=False):
         super().__init__()
         mid = cin * expand_ratio
         self.with_res = stride == 1 and cin == cout
+        self.drop_path_rate = drop_path_rate
+        self.with_cp = with_cp
         self.expand_conv = ConvBNAct(cin, mid, 1) if mid != cin else None
         self.depthwise_conv = ConvBNAct(mid, mid, kernel, stride=stride,
                                         groups=mid)
@@ -141,40 +152,74 @@ class InvertedResidual(nn.Module):
                    if se_ratio > 0 else None)
         self.linear_conv = ConvBNAct(mid, cout, 1, act=False)
 
-    def forward(self, x):
-        out = x if self.expand_conv is None else self.expand_conv(x)
-        out = self.depthwise_conv(out)
+    def forward(self, x, keep=None):
+        if not (self.with_cp and self.training and torch.is_grad_enabled()):
+            return self._block(x, keep)
+        first = [True]
+
+        def run(x, keep):  # the forward updates BN statistics, the
+            update, first[0] = first[0], False  # recompute does not
+            return self._block(x, keep, update)
+
+        return checkpoint(run, x, keep, use_reentrant=False)
+
+    def _block(self, x, keep, update_stats=True):
+        out = x if self.expand_conv is None else self.expand_conv(
+            x, update_stats)
+        out = self.depthwise_conv(out, update_stats)
         if self.se is not None:
             out = self.se(out)
-        out = self.linear_conv(out)
-        return x + out if self.with_res else out
+        out = self.linear_conv(out, update_stats)
+        if not self.with_res:
+            return out
+        if keep is not None:
+            out = drop_path(out, keep, self.drop_path_rate)
+        return x + out
+
+    def drop_mask(self, x, generator):
+        """This block's DropPath mask for input ``x``, or None where it
+        drops nothing (eval mode, rate 0, no residual)."""
+        if not (self.training and self.with_res and self.drop_path_rate > 0):
+            return None
+        return keep_mask((x.shape[0],), 1.0 - self.drop_path_rate,
+                         generator, x.device)
 
 
 class CustomEfficientNet(nn.Module):
     """Multi-output EfficientNet; [N, 3, H, W] -> list of feature maps."""
 
-    def __init__(self, arch: str = "b0", out_indices: Sequence[int] = (6,)):
+    def __init__(self, arch: str = "b0", out_indices: Sequence[int] = (6,),
+                 drop_path_rate: float = 0.0, with_cp: bool = False):
         super().__init__()
         stem_ch, stages, head_ch = scaled_stage_settings(arch)
         self.out_indices = tuple(out_indices)
+        total = sum(len(s) for s in stages)
+        rates = iter(drop_path_rate * i / max(total - 1, 1)
+                     for i in range(total))
         layers = [ConvBNAct(3, stem_ch, _STEM[0], stride=_STEM[2])]
         cin = stem_ch
         for stage in stages:
             blocks = []
             for k, c, se, s, e in stage:
-                blocks.append(InvertedResidual(cin, c, k, s, e, se))
+                blocks.append(InvertedResidual(cin, c, k, s, e, se,
+                                               next(rates), with_cp))
                 cin = c
             layers.append(nn.Sequential(*blocks))
         layers.append(ConvBNAct(cin, head_ch, _HEAD[0], stride=_HEAD[2]))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """``generator`` seeds the DropPath masks in training mode."""
         outs = []
         last = max(self.out_indices)
         for i, layer in enumerate(self.layers):
             if i > last:
                 break
-            x = layer(x)
+            if isinstance(layer, nn.Sequential):  # a stage of blocks
+                for block in layer:
+                    x = block(x, block.drop_mask(x, generator))
+            else:
+                x = layer(x)
             if i in self.out_indices:
                 outs.append(x)
         return outs

@@ -1,14 +1,18 @@
-"""Layer building blocks used on the inference path.
+"""Layer building blocks of the detector.
 
 Port of the subset of ``stereoscene_tpu/models/layers.py`` that the flagship
-forward runs. Modules compute channels-first (NCHW / NCDHW) with the
-reference's ``state_dict`` keys. The JAX package's TPU layouts (agg4d,
-zpack / dpack / dphase / subpixel) are layout tricks around this same math
-and are not ported.
+model runs, for inference and training. Modules compute channels-first
+(NCHW / NCDHW) with the reference's ``state_dict`` keys. The JAX package's
+TPU layouts (agg4d, zpack / dpack / dphase / subpixel) are layout tricks
+around this same math and are not ported.
 
 Normalisation computes in fp32 and casts back, the JAX package's fp32
 islands (``layers.py`` GroupNorm / BatchNorm defaults), so a bf16 model
 keeps fp32 statistics.
+
+Randomness (DropPath, Dropout) comes from an optional ``torch.Generator``
+through ``keep_mask``, so a caller can seed it; the JAX package draws from
+its ``dropout`` rng stream, which gives other bits from the same seed.
 """
 
 from __future__ import annotations
@@ -16,6 +20,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.conv3d import KERNEL_CIN, conv3d_s1
+
 
 def ConvTransposeTorch(cin: int, cout: int, kernel_size: int, ndim: int,
                        stride: int = 1, padding: int = 0,
@@ -25,6 +32,34 @@ def ConvTransposeTorch(cin: int, cout: int, kernel_size: int, ndim: int,
     cls = nn.ConvTranspose2d if ndim == 2 else nn.ConvTranspose3d
     return cls(cin, cout, kernel_size, stride=stride, padding=padding,
                output_padding=output_padding, bias=bias)
+
+
+def keep_mask(shape, keep: float, generator, device) -> torch.Tensor:
+    """Bernoulli(``keep``) bool mask of ``shape`` on ``device``, drawn from
+    ``generator`` (on the generator's device; torch's default generator
+    when None)."""
+    gen_device = generator.device if generator is not None else device
+    draw = torch.rand(shape, generator=generator, device=gen_device)
+    return (draw < keep).to(device)
+
+
+def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+    """Element-wise dropout, flax ``nn.Dropout``: kept values scaled by
+    1 / (1 - rate)."""
+    keep = 1.0 - rate
+    mask = keep_mask(x.shape, keep, generator, x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def drop_path(x: torch.Tensor, keep: torch.Tensor,
+              rate: float) -> torch.Tensor:
+    """Per-sample stochastic depth (layers.py:1039-1052): sample n of ``x``
+    is zeroed where ``keep[n]`` is False and scaled by 1 / (1 - rate)
+    where it is True."""
+    mask = keep.reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(mask, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class GroupNorm(nn.GroupNorm):
@@ -46,25 +81,72 @@ class GroupNorm(nn.GroupNorm):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Inference BatchNorm on any channels-first rank, computed in fp32
-    with the running statistics (the port runs eval only)."""
+    """BatchNorm on any channels-first rank, computed in fp32.
+
+    Eval mode normalises with the running statistics. Training mode
+    normalises with the batch's mean and biased variance and updates the
+    running statistics as flax does (layers.py:958-976): r <- (1 - m) r +
+    m * batch statistic with m = ``self.momentum`` (torch's convention) and
+    the *biased* variance, where ``F.batch_norm`` would take the unbiased
+    one. ``update_stats=False`` leaves them alone: the recompute of a
+    checkpointed block must not update them a second time."""
+
+    def forward(self, x, update_stats: bool = True):
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(
+                xf, self.running_mean.float(), self.running_var.float(),
+                self.weight.float(), self.bias.float(), False, 0.0,
+                self.eps).to(x.dtype)
+        dims = [0] + list(range(2, x.dim()))
+        var, mean = torch.var_mean(xf, dim=dims, correction=0)
+        if update_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                     + self.eps)
+        return (y * self.weight.float().reshape(shape)
+                + self.bias.float().reshape(shape)).to(x.dtype)
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` (same ``weight`` / ``bias`` keys) that sends a conv to
+    kernel K4 (``ops.conv3d.conv3d_s1``) under the JAX package's gate
+    (``ConvNd``, layers.py:644-661): 3x3x3, stride 1, padding 1, groups 1,
+    Ci in {64, 128}, Co >= 64, a 5-D input, and built with
+    ``kernel=True`` (the port's ``STEREOSCENE_PALLAS_CONV3D=1``). Any other
+    conv is ``F.conv3d``. The bias is added outside the kernel, as the JAX
+    package's ``_PallasConv3d`` does."""
+
+    def __init__(self, cin: int, cout: int, kernel_size, stride=1,
+                 padding=0, bias: bool = True, kernel: bool = False):
+        super().__init__(cin, cout, kernel_size, stride=stride,
+                         padding=padding, bias=bias)
+        self.k4 = kernel and (
+            self.kernel_size == (3, 3, 3) and self.stride == (1, 1, 1)
+            and self.padding == (1, 1, 1) and self.dilation == (1, 1, 1)
+            and self.groups == 1 and self.padding_mode == "zeros"
+            and cin in KERNEL_CIN and cout >= 64)
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError("stereoscene_torch runs inference only")
-        return F.batch_norm(
-            x.float(), self.running_mean.float(), self.running_var.float(),
-            self.weight.float(), self.bias.float(), False, 0.0,
-            self.eps).to(x.dtype)
+        if not (self.k4 and x.dim() == 5):
+            return super().forward(x)
+        y = conv3d_s1(x, self.weight)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(y.dtype).reshape(1, -1, 1, 1, 1)
 
 
 def ConvGN3d(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
-             padding: int = 1, num_groups: int = 2) -> nn.Sequential:
+             padding: int = 1, num_groups: int = 2,
+             conv3d_kernel: bool = False) -> nn.Sequential:
     """conv3d (no bias) + GroupNorm: the reference's ``convbn_3d``
     (ViewTransformerLSSVoxel.py:66-69), keys ``.0`` conv and ``.1`` norm."""
     return nn.Sequential(
-        nn.Conv3d(cin, cout, kernel_size, stride=stride, padding=padding,
-                  bias=False),
+        Conv3d(cin, cout, kernel_size, stride=stride, padding=padding,
+               bias=False, kernel=conv3d_kernel),
         GroupNorm(num_groups, cout))
 
 

@@ -80,10 +80,11 @@ class Residual(nn.Module):
 
 
 class VolumeInteraction(nn.Module):
-    def __init__(self, channels: int = 32, attention_chunk: int = 1024):
+    def __init__(self, channels: int = 32, attention_chunk: int = 1024,
+                 conv3d_kernel: bool = False):
         super().__init__()
         self.redir1 = nn.Conv3d(2, channels, 3, padding=1)
-        self.dres1 = Hourglass3D(channels)
+        self.dres1 = Hourglass3D(channels, conv3d_kernel)
         self.redir2 = nn.Conv3d(channels, 1, 3, padding=1)
         self.lss2stereo = BRIAttention(attention_chunk)
         self.stereo2lss = BRIAttention(attention_chunk)

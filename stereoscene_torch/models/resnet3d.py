@@ -11,21 +11,22 @@ from typing import Sequence
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import GroupNorm
+from .layers import Conv3d, GroupNorm
 
 
 class BasicBlock3d(nn.Module):
-    def __init__(self, cin, planes, stride=1, gn_groups=32):
+    def __init__(self, cin, planes, stride=1, gn_groups=32,
+                 conv3d_kernel=False):
         super().__init__()
-        self.conv1 = nn.Conv3d(cin, planes, 3, stride=stride, padding=1,
-                               bias=False)
+        k = dict(bias=False, kernel=conv3d_kernel)
+        self.conv1 = Conv3d(cin, planes, 3, stride=stride, padding=1, **k)
         self.bn1 = GroupNorm(gn_groups, planes)
-        self.conv2 = nn.Conv3d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = Conv3d(planes, planes, 3, padding=1, **k)
         self.bn2 = GroupNorm(gn_groups, planes)
         self.downsample = None
         if stride != 1 or cin != planes:
             self.downsample = nn.Sequential(
-                nn.Conv3d(cin, planes, 1, stride=stride, bias=False),
+                Conv3d(cin, planes, 1, stride=stride, **k),
                 GroupNorm(gn_groups, planes))
 
     def forward(self, x):
@@ -38,7 +39,7 @@ class BasicBlock3d(nn.Module):
 class CustomResNet3D(nn.Module):
     def __init__(self, in_channels: int, block_inplanes: Sequence[int],
                  block_strides: Sequence[int], depth: int = 18,
-                 norm_groups: int = 32):
+                 norm_groups: int = 32, conv3d_kernel: bool = False):
         super().__init__()
         blocks = {10: 1, 18: 2}[depth]
         self.input_proj = nn.Sequential(
@@ -47,9 +48,10 @@ class CustomResNet3D(nn.Module):
         layers = []
         cin = block_inplanes[0]
         for planes, stride in zip(block_inplanes, block_strides):
-            stage = [BasicBlock3d(cin, planes, stride, norm_groups)]
-            stage += [BasicBlock3d(planes, planes, 1, norm_groups)
-                      for _ in range(1, blocks)]
+            stage = [BasicBlock3d(cin, planes, stride, norm_groups,
+                                  conv3d_kernel)]
+            stage += [BasicBlock3d(planes, planes, 1, norm_groups,
+                                   conv3d_kernel) for _ in range(1, blocks)]
             layers.append(nn.Sequential(*stage))
             cin = planes
         self.layers = nn.ModuleList(layers)

@@ -10,7 +10,9 @@
   ``ops.gwc.fused_gwc_warp``), the dres0/dres1 stem, three hourglasses and
   the two heads, with the fp32 depth softmax.
 
-Features enter [B, C, fH, fW]; volumes are [B, C, D, fH, fW].
+Features enter [B, C, fH, fW]; volumes are [B, C, D, fH, fW]. Built with
+``conv3d_kernel=True``, the hourglasses' 64 -> 64 and 128 -> 128 convs run
+kernel K4 (``layers.Conv3d``).
 """
 
 from __future__ import annotations
@@ -46,12 +48,16 @@ class StereoFeatureNet(nn.Module):
 
 
 class Hourglass3D(nn.Module):
-    def __init__(self, c: int):
+    def __init__(self, c: int, conv3d_kernel: bool = False):
         super().__init__()
-        self.conv1 = nn.Sequential(ConvGN3d(c, 2 * c, 3, 2, 1), nn.ReLU())
-        self.conv2 = nn.Sequential(ConvGN3d(2 * c, 2 * c, 3, 1, 1), nn.ReLU())
-        self.conv3 = nn.Sequential(ConvGN3d(2 * c, 4 * c, 3, 2, 1), nn.ReLU())
-        self.conv4 = nn.Sequential(ConvGN3d(4 * c, 4 * c, 3, 1, 1), nn.ReLU())
+        k = dict(conv3d_kernel=conv3d_kernel)
+        self.conv1 = nn.Sequential(ConvGN3d(c, 2 * c, 3, 2, 1, **k), nn.ReLU())
+        self.conv2 = nn.Sequential(ConvGN3d(2 * c, 2 * c, 3, 1, 1, **k),
+                                   nn.ReLU())
+        self.conv3 = nn.Sequential(ConvGN3d(2 * c, 4 * c, 3, 2, 1, **k),
+                                   nn.ReLU())
+        self.conv4 = nn.Sequential(ConvGN3d(4 * c, 4 * c, 3, 1, 1, **k),
+                                   nn.ReLU())
         self.conv5 = nn.Sequential(
             ConvTransposeTorch(4 * c, 2 * c, 3, ndim=3, stride=2, padding=1,
                                output_padding=1),
@@ -60,8 +66,8 @@ class Hourglass3D(nn.Module):
             ConvTransposeTorch(2 * c, c, 3, ndim=3, stride=2, padding=1,
                                output_padding=1),
             BatchNorm(c))
-        self.redir1 = ConvGN3d(c, c, 1, 1, 0)
-        self.redir2 = ConvGN3d(2 * c, 2 * c, 1, 1, 0)
+        self.redir1 = ConvGN3d(c, c, 1, 1, 0, **k)
+        self.redir2 = ConvGN3d(2 * c, 2 * c, 1, 1, 0, **k)
 
     def forward(self, x):
         c2 = self.conv2(self.conv1(x))
@@ -72,7 +78,8 @@ class Hourglass3D(nn.Module):
 
 class GwcVolumeEncoder(nn.Module):
     def __init__(self, max_disp, in_channels, out_channels=32, num_groups=32,
-                 mid_channels=128, match_channels=64, cam_channels=30):
+                 mid_channels=128, match_channels=64, cam_channels=30,
+                 conv3d_kernel=False):
         super().__init__()
         self.max_disp = max_disp
         self.num_groups = num_groups
@@ -83,9 +90,9 @@ class GwcVolumeEncoder(nn.Module):
                                    ConvGN3d(32, 32), nn.ReLU())
         self.dres1 = nn.Sequential(ConvGN3d(32, 32), nn.ReLU(),
                                    ConvGN3d(32, 32))
-        self.dres2 = Hourglass3D(32)
-        self.dres3 = Hourglass3D(32)
-        self.dres4 = Hourglass3D(32)
+        self.dres2 = Hourglass3D(32, conv3d_kernel)
+        self.dres3 = Hourglass3D(32, conv3d_kernel)
+        self.dres4 = Hourglass3D(32, conv3d_kernel)
         self.classif3_1 = nn.Sequential(ConvGN3d(32, out_channels), nn.ReLU())
         self.classif3_2 = nn.Sequential(
             nn.Conv3d(out_channels, 1, 3, padding=1, bias=False))

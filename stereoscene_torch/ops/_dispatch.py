@@ -5,14 +5,16 @@ from __future__ import annotations
 import torch
 
 
-def want_kernel(name: str, use_kernel, *tensors: torch.Tensor) -> bool:
+def want_kernel(name: str, use_kernel, *tensors: torch.Tensor,
+                differentiable: bool = False) -> bool:
     """True when ``name`` must launch its CUDA kernel.
 
     ``use_kernel`` None means "the kernel when the tensors are on CUDA".
     A CUDA tensor with ``use_kernel`` not False takes the kernel (which
     launches or raises); a CPU tensor takes the plain version and may not
-    ask for the kernel. The kernels are forward-only: asking for one with
-    an input that requires grad under grad mode raises."""
+    ask for the kernel. A wrapper whose kernel has no backward
+    (``differentiable`` False) raises when asked for the kernel with an
+    input that requires grad under grad mode."""
     cuda = tensors[0].is_cuda
     if any(t.is_cuda != cuda for t in tensors):
         raise ValueError(f"{name}: inputs are on different devices")
@@ -24,7 +26,8 @@ def want_kernel(name: str, use_kernel, *tensors: torch.Tensor) -> bool:
                 f"{name}: use_kernel=True needs CUDA tensors, got "
                 f"{tensors[0].device}")
         return False
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if (not differentiable and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
         raise NotImplementedError(
             f"{name}: the CUDA kernel is forward-only; run under "
             f"torch.no_grad() or pass use_kernel=False")

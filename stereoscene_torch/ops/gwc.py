@@ -72,25 +72,9 @@ def gwc_warp_plain(left, right, positions, max_disp, num_groups,
     return out.to(out_dtype or left.dtype)
 
 
-def fused_gwc_warp(
-    left: torch.Tensor,
-    right: torch.Tensor,
-    positions: torch.Tensor,
-    max_disp: int,
-    num_groups: int,
-    out_dtype=None,
-    use_kernel=None,
-) -> torch.Tensor:
-    """Correlation volume + depth warp in one pass, [B, K, H, W, G].
-
-    left / right: [B, H, W, C] fp32 or bf16; positions: [B, K] fractional
-    disparity positions. On a CUDA tensor (``use_kernel`` None or True)
-    this launches ``csrc/gwc_warp.cu`` or raises; on a CPU tensor it runs
-    ``gwc_warp_plain``. Forward only."""
-    out_dtype = out_dtype or left.dtype
-    if not want_kernel("fused_gwc_warp", use_kernel, left, right, positions):
-        return gwc_warp_plain(left, right, positions, max_disp, num_groups,
-                              out_dtype)
+def gwc_warp_kernel(left, right, positions, max_disp, num_groups,
+                    out_dtype) -> torch.Tensor:
+    """Launch ``csrc/gwc_warp.cu`` (K1) on CUDA tensors or raise."""
     b, h, w, c = left.shape
     if right.shape != left.shape or right.dtype != left.dtype:
         raise ValueError(
@@ -119,3 +103,53 @@ def fused_gwc_warp(
         ), "stereoscene_gwc_warp")
     _build.launch_counts["gwc_warp"] += 1
     return out
+
+
+class GwcWarp(torch.autograd.Function):
+    """``forward(left, right, positions, max_disp, num_groups, out_dtype,
+    impl)`` runs ``impl`` (K1 or ``gwc_warp_plain``). The backward is the
+    JAX package's ``_fused_bwd`` (pallas_gwc.py:217-227): autograd through
+    the plain unfused pair in ``out_dtype``, zero for ``positions``."""
+
+    @staticmethod
+    def forward(ctx, left, right, positions, max_disp, num_groups, out_dtype,
+                impl):
+        ctx.save_for_backward(left, right, positions)
+        ctx.args = (max_disp, num_groups, out_dtype)
+        return impl(left, right, positions, max_disp, num_groups, out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        left, right, positions = ctx.saved_tensors
+        max_disp, num_groups, out_dtype = ctx.args
+        with torch.enable_grad():
+            lt = left.detach().requires_grad_()
+            rt = right.detach().requires_grad_()
+            out = gwc_warp_plain(lt, rt, positions, max_disp, num_groups,
+                                 out_dtype)
+            dl, dr = torch.autograd.grad(out, (lt, rt), grad)
+        return (dl, dr, torch.zeros_like(positions), None, None, None, None)
+
+
+def fused_gwc_warp(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    positions: torch.Tensor,
+    max_disp: int,
+    num_groups: int,
+    out_dtype=None,
+    use_kernel=None,
+) -> torch.Tensor:
+    """Correlation volume + depth warp in one pass, [B, K, H, W, G],
+    differentiable in ``left`` and ``right``.
+
+    left / right: [B, H, W, C] fp32 or bf16; positions: [B, K] fractional
+    disparity positions. On a CUDA tensor (``use_kernel`` None or True)
+    the forward launches ``csrc/gwc_warp.cu`` or raises; on a CPU tensor it
+    runs ``gwc_warp_plain``."""
+    out_dtype = out_dtype or left.dtype
+    kernel = want_kernel("fused_gwc_warp", use_kernel, left, right,
+                         positions, differentiable=True)
+    impl = gwc_warp_kernel if kernel else gwc_warp_plain
+    return GwcWarp.apply(left, right, positions, max_disp, num_groups,
+                         out_dtype, impl)

@@ -9,8 +9,11 @@ with two entry points:
   splat of the main path;
 - ``splat_sorted``: a segment sum of pre-lifted rank-sorted rows (K2).
 
-Plans come from ``ops/splat_plan.py``. The dynamic-rank ``lift_splat`` of
-the JAX package is not ported yet.
+Plans come from ``ops/splat_plan.py``. The kernels are forward-only and
+serve inference. Training splats with the dynamic-rank ``lift_splat``
+(``voxel_pool.py:89-103, 230-265`` of the JAX package): an ``index_add``
+into an overflow bucket at ``num_voxels`` that is then dropped, which is
+what the JAX package leaves to XLA, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -178,3 +181,34 @@ def lift_splat_static(
             order[i], bounds[i], group, num_voxels, use_kernel,
         ).view(num_x, num_y, num_z, c)
         for i in range(b)])
+
+
+def voxel_pool_scatter(feats: torch.Tensor, ranks: torch.Tensor,
+                       num_voxels: int) -> torch.Tensor:
+    """Sum rows of ``feats`` [P, C] into [num_voxels, C] by ``ranks`` [P]
+    in [0, num_voxels]; rank ``num_voxels`` is the overflow bucket of
+    out-of-bounds points and is dropped. Differentiable."""
+    out = feats.new_zeros(num_voxels + 1, feats.shape[-1])
+    return out.index_add(0, ranks.long(), feats)[:num_voxels]
+
+
+def lift_splat(
+    depth_prob: torch.Tensor,
+    img_feat: torch.Tensor,
+    ranks: torch.Tensor,
+    grid_shape: Tuple[int, int, int],
+) -> torch.Tensor:
+    """Lift (outer product) + splat with per-point voxel ranks.
+
+    depth_prob: [B, D, fH, fW]; img_feat: [B, fH, fW, C]; ranks:
+    [B, D*fH*fW] (sentinel ``X*Y*Z`` out of bounds). Returns
+    [B, X, Y, Z, C] in the inputs' dtype."""
+    num_x, num_y, num_z = grid_shape
+    num_voxels = num_x * num_y * num_z
+    b, d, fh, fw = depth_prob.shape
+    c = img_feat.shape[-1]
+    lifted = (depth_prob.reshape(b, d, fh * fw, 1)
+              * img_feat.reshape(b, 1, fh * fw, c)).reshape(b, -1, c)
+    return torch.stack([
+        voxel_pool_scatter(lifted[i], ranks[i], num_voxels)
+        for i in range(b)]).view(b, num_x, num_y, num_z, c)

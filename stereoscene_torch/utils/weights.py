@@ -2,11 +2,13 @@
 
 ``load_flax_params(model, params, batch_stats)`` fills a port model from the
 JAX package's parameter trees (nested dicts of numpy arrays, e.g. after
-``jax.device_get``). The name map below is the inverse of the JAX package's
-``utils/convert_reference.build_name_map``: every flax leaf path maps to the
-reference ``state_dict`` key the port uses, with the layout transform from
-the flax layout back to torch's (inverse of
-``utils/checkpoint_convert.py``).
+``jax.device_get``), and ``flax_trees(model)`` goes the other way: the
+port's parameters and BatchNorm statistics, or any tensors keyed by its
+parameter names such as gradients, as flax trees. The name map below is the
+inverse of the JAX package's ``utils/convert_reference.build_name_map``:
+every flax leaf path maps to the reference ``state_dict`` key the port
+uses, with the layout transform from the flax layout to torch's (inverse of
+``utils/checkpoint_convert.py``) and back.
 
 ``seeded_init_(model, seed)`` gives every tensor a deterministic value from a
 ``torch.Generator``, with the zero-initialised gates (BRI ``gamma``, CA3D
@@ -20,7 +22,9 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-Rule = Tuple[str, Callable[[np.ndarray], np.ndarray]]
+Transform = Callable[[np.ndarray], np.ndarray]
+# (port key, flax -> torch layout, torch -> flax layout)
+Rule = Tuple[str, Transform, Transform]
 
 
 def _conv(w):  # flax [k..., Cin/g, Cout] -> torch [Cout, Cin/g, k...]
@@ -28,12 +32,22 @@ def _conv(w):  # flax [k..., Cin/g, Cout] -> torch [Cout, Cin/g, k...]
     return np.transpose(w, (nd + 1, nd) + tuple(range(nd)))
 
 
+def _conv_inv(w):  # torch [Cout, Cin/g, k...] -> flax [k..., Cin/g, Cout]
+    nd = w.ndim - 2
+    return np.transpose(w, tuple(range(2, nd + 2)) + (1, 0))
+
+
 def _deconv(w):  # flax [k..., Cin, Cout] -> torch [Cin, Cout, k...]
     nd = w.ndim - 2
     return np.transpose(w, (nd, nd + 1) + tuple(range(nd)))
 
 
-def _linear(w):  # flax [in, out] -> torch [out, in]
+def _deconv_inv(w):  # torch [Cin, Cout, k...] -> flax [k..., Cin, Cout]
+    nd = w.ndim - 2
+    return np.transpose(w, tuple(range(2, nd + 2)) + (0, 1))
+
+
+def _linear(w):  # flax [in, out] <-> torch [out, in]
     return np.transpose(w, (1, 0))
 
 
@@ -42,12 +56,24 @@ def _dense_as_conv(nd):  # flax [in, out] -> torch 1x1 conv [out, in, 1...]
         w.shape[1], w.shape[0], *([1] * nd))
 
 
+def _dense_as_conv_inv(w):  # torch 1x1 conv [out, in, 1...] -> flax
+    return np.transpose(w.reshape(w.shape[0], w.shape[1]), (1, 0))
+
+
 def _dcn(w):  # flax tap-major [9, Cin/g, Cout] -> torch [Cout, Cin/g, 3, 3]
     return np.transpose(w, (2, 1, 0)).reshape(w.shape[2], w.shape[1], 3, 3)
 
 
+def _dcn_inv(w):  # torch [Cout, Cin/g, 3, 3] -> flax [9, Cin/g, Cout]
+    return np.transpose(w.reshape(w.shape[0], w.shape[1], 9), (2, 1, 0))
+
+
 def _scalar_conv(w):  # scalar affine of a C=1 1x1x1 conv3d
     return np.reshape(w, (1, 1, 1, 1, 1))
+
+
+def _scalar_conv_inv(w):
+    return np.reshape(w, ())
 
 
 def _same(w):
@@ -62,20 +88,24 @@ class _Map:
     def conv(self, ours, theirs, bias=True, inner=True):
         """Our ConvNd wrapper (``Conv_0`` inside) or a bare conv leaf."""
         leaf = f"{ours}/Conv_0" if inner else ours
-        self.params[f"{leaf}/kernel"] = (f"{theirs}.weight", _conv)
+        self.params[f"{leaf}/kernel"] = (f"{theirs}.weight", _conv,
+                                         _conv_inv)
         if bias:
-            self.params[f"{leaf}/bias"] = (f"{theirs}.bias", _same)
+            self.params[f"{leaf}/bias"] = (f"{theirs}.bias", _same, _same)
 
     def deconv(self, ours, theirs):
-        self.params[f"{ours}/kernel"] = (f"{theirs}.weight", _deconv)
+        self.params[f"{ours}/kernel"] = (f"{theirs}.weight", _deconv,
+                                         _deconv_inv)
 
     def norm(self, ours, theirs, kind):
         leaf = f"{ours}/{kind}_0"
-        self.params[f"{leaf}/scale"] = (f"{theirs}.weight", _same)
-        self.params[f"{leaf}/bias"] = (f"{theirs}.bias", _same)
+        self.params[f"{leaf}/scale"] = (f"{theirs}.weight", _same, _same)
+        self.params[f"{leaf}/bias"] = (f"{theirs}.bias", _same, _same)
         if kind == "BatchNorm":
-            self.stats[f"{leaf}/mean"] = (f"{theirs}.running_mean", _same)
-            self.stats[f"{leaf}/var"] = (f"{theirs}.running_var", _same)
+            self.stats[f"{leaf}/mean"] = (f"{theirs}.running_mean", _same,
+                                          _same)
+            self.stats[f"{leaf}/var"] = (f"{theirs}.running_var", _same,
+                                         _same)
 
     def gn(self, ours, theirs):
         self.norm(ours, theirs, "GroupNorm")
@@ -84,9 +114,12 @@ class _Map:
         self.norm(ours, theirs, "BatchNorm")
 
     def dense(self, ours, theirs, conv_nd=0):
-        fwd = _linear if conv_nd == 0 else _dense_as_conv(conv_nd)
-        self.params[f"{ours}/kernel"] = (f"{theirs}.weight", fwd)
-        self.params[f"{ours}/bias"] = (f"{theirs}.bias", _same)
+        if conv_nd == 0:
+            fwd, inv = _linear, _linear
+        else:
+            fwd, inv = _dense_as_conv(conv_nd), _dense_as_conv_inv
+        self.params[f"{ours}/kernel"] = (f"{theirs}.weight", fwd, inv)
+        self.params[f"{ours}/bias"] = (f"{theirs}.bias", _same, _same)
 
     def mlp(self, ours, theirs):
         self.dense(f"{ours}/fc1", f"{theirs}.fc1")
@@ -168,7 +201,8 @@ def flax_name_map(cfg) -> _Map:
     m.gn(f"{aspp}/gap_gn", f"{taspp}.global_avg_pool.2")
     m.conv(f"{aspp}/out_conv", f"{taspp}.conv1", bias=False)
     m.bn(f"{aspp}/out_bn", f"{taspp}.bn1")
-    m.params[f"{dn}/dcn/weight"] = (f"{tdn}.depth_conv.4.weight", _dcn)
+    m.params[f"{dn}/dcn/weight"] = (f"{tdn}.depth_conv.4.weight", _dcn,
+                                    _dcn_inv)
     m.conv(f"{dn}/dcn/conv_offset", f"{tdn}.depth_conv.4.conv_offset",
            inner=False)
     m.conv(f"{dn}/depth_pred", f"{tdn}.depth_conv.5")
@@ -193,10 +227,11 @@ def flax_name_map(cfg) -> _Map:
     for d in ("lss2stereo", "stereo2lss"):
         for name in ("query", "key", "value"):
             m.params[f"{vi}/{d}/{name}_w"] = (
-                f"{tvi}.{d}.{name}_conv.weight", _scalar_conv)
+                f"{tvi}.{d}.{name}_conv.weight", _scalar_conv,
+                _scalar_conv_inv)
             m.params[f"{vi}/{d}/{name}_b"] = (f"{tvi}.{d}.{name}_conv.bias",
-                                              _same)
-        m.params[f"{vi}/{d}/gamma"] = (f"{tvi}.{d}.gamma", _same)
+                                              _same, _same)
+        m.params[f"{vi}/{d}/gamma"] = (f"{tvi}.{d}.gamma", _same, _same)
     m.conv(f"{vi}/redir1", f"{tvi}.redir1")
     m.conv(f"{vi}/redir2", f"{tvi}.redir2")
     m.hourglass(f"{vi}/dres1", f"{tvi}.dres1")
@@ -207,7 +242,7 @@ def flax_name_map(cfg) -> _Map:
     m.dense(f"{ca}/fc_expand", f"{tca}.conv2.2", 3)
     m.conv(f"{ca}/conv2", f"{tca}.conv.0")
     m.gn(f"{ca}/gn2", f"{tca}.conv.2")
-    m.params[f"{vi}/ca3d_alpha"] = (f"{tvi}.CA3D.alpha", _same)
+    m.params[f"{vi}/ca3d_alpha"] = (f"{tvi}.CA3D.alpha", _same, _same)
 
     bev = "img_bev_encoder_backbone"
     m.conv(f"{bev}/input_proj_conv", f"{bev}.input_proj.0", bias=False)
@@ -265,7 +300,7 @@ def load_flax_params(model, params, batch_stats) -> None:
         for path, leaf in _flatten(tree).items():
             if path not in rules:
                 raise KeyError(f"flax leaf {path} has no port counterpart")
-            key, fwd = rules[path]
+            key, fwd, _ = rules[path]
             if key not in sd:
                 raise KeyError(f"{path} -> {key}: not in the port state_dict")
             arr = fwd(np.asarray(leaf, dtype=np.float32))
@@ -279,6 +314,38 @@ def load_flax_params(model, params, batch_stats) -> None:
     if missing:
         raise KeyError(f"{len(missing)} port tensors not filled, first 10: "
                        f"{missing[:10]}")
+
+
+def _unflatten(flat):
+    tree = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, name = path.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = leaf
+    return tree
+
+
+def flax_trees(model, tensors=None):
+    """The port ``model``'s parameters and BatchNorm statistics as the JAX
+    package's ``(params, batch_stats)`` trees of fp32 numpy arrays, in the
+    flax layout. ``tensors`` (port key -> tensor, e.g. the gradients of
+    the parameters) replaces the parameters; a parameter missing from it
+    maps to zeros."""
+    name_map = flax_name_map(model.cfg)
+    sd = model.state_dict()
+    trees = []
+    for rules, source in ((name_map.params, tensors),
+                          (name_map.stats, None)):
+        flat = {}
+        for path, (key, _, inv) in rules.items():
+            value = sd[key] if source is None else source.get(key)
+            arr = (np.zeros(tuple(sd[key].shape), np.float32) if value is None
+                   else value.detach().float().cpu().numpy())
+            flat[path] = np.ascontiguousarray(inv(arr))
+        trees.append(_unflatten(flat))
+    return trees[0], trees[1]
 
 
 @torch.no_grad()

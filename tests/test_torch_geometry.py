@@ -106,7 +106,8 @@ def test_mlp_input_and_disparity_positions_match_jax():
 def test_ranks_identical_tiny(augmented):
     batch = _augmented_batch() if augmented else _np_batch(b=2)
     want = _jax_ranks(TINY, batch)
-    got = BEVDepthOccupancy(port_cfg(TINY)).compute_ranks(_torch(batch))
+    got = BEVDepthOccupancy(port_cfg(TINY), device="cpu").compute_ranks(
+        _torch(batch))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0 < (want < np.prod(TINY.grid_shape)).sum() < want.size
@@ -120,7 +121,7 @@ def test_flagship_plan_identical():
     batch = _flagship_batch()
     nvox = int(np.prod(cfg.grid_shape))
     want = _jax_ranks(cfg, batch)[0]
-    model = BEVDepthOccupancy(DetectorConfig())
+    model = BEVDepthOccupancy(DetectorConfig(), device="cpu")
     got = model.compute_ranks(_torch(batch))[0].numpy()
     np.testing.assert_array_equal(got, want)
     order, rs = tplan.build_plan(got, nvox, group=8)
@@ -174,7 +175,7 @@ def test_plan_validation_matches_jax():
 
 
 def test_plan_cache_reuses_calibration():
-    model = BEVDepthOccupancy(port_cfg(TINY))
+    model = BEVDepthOccupancy(port_cfg(TINY), device="cpu")
     batch = _torch(_np_batch(b=2))
     out = model.plan_cache.attach(batch)
     assert model.plan_cache.misses == 1 and model.plan_cache.hits == 1
@@ -187,9 +188,12 @@ def test_plan_cache_reuses_calibration():
 
 
 def test_port_never_imports_jax():
+    """Every module of the port, and chip_smoke.py, imports without
+    pulling in JAX, flax or the JAX package."""
     code = (
-        "import sys, stereoscene_torch, stereoscene_torch.models.detector, "
-        "stereoscene_torch.utils.weights, stereoscene_torch.ops.voxel_pool; "
+        "import importlib, pkgutil, sys, stereoscene_torch, chip_smoke; "
+        "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+        "stereoscene_torch.__path__, 'stereoscene_torch.')]; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('stereoscene_tpu') or m == 'flax']; "
         "print(bad); sys.exit(1 if bad else 0)")

@@ -102,3 +102,29 @@ def test_cpu_route_rules():
     out = tgwc.fused_gwc_warp(left, right, pos, 4, 2)
     out.sum().backward()
     assert left.grad is not None and torch.isfinite(left.grad).all()
+
+
+@pytest.mark.parametrize("calib", [707.0 * 0.54, 20.0])
+def test_backward_matches_jax_custom_vjp(calib):
+    """The K1 Function's backward (plain autograd through the unfused pair,
+    the JAX package's ``_fused_bwd``) against jax.grad through the fused
+    kernel's custom VJP in interpret mode; positions get a zero grad."""
+    import jax
+
+    b, h, w, c, d, g = 2, 4, 24, 16, 16, 8
+    left, right = _inputs(5, b, h, w, c)
+    pos = _positions(calib, b, d)
+    cot = np.random.RandomState(6).randn(b, d, h, w, g).astype(np.float32)
+
+    def loss(lf, rt, ps):
+        out = jax_fused(lf, rt, ps, d, g, interpret=True)
+        return jnp.sum(out * jnp.asarray(cot))
+
+    want = jax.grad(loss, (0, 1, 2))(*(jnp.asarray(a)
+                                       for a in (left, right, pos)))
+    ins = [torch.from_numpy(a).requires_grad_() for a in (left, right, pos)]
+    (tgwc.fused_gwc_warp(*ins, d, g) * torch.from_numpy(cot)).sum().backward()
+    for got, ref in zip(ins, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)
+    assert not ins[2].grad.any()

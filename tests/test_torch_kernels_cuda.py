@@ -6,8 +6,9 @@ elsewhere. This file imports no JAX, so on a machine without it run
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerances: fp32 1e-5 (the kernels sum in fp32, in another order than the
-plain versions), bf16 output 2e-2 (one bf16 rounding), splats 1e-4 of the
-output's scale.
+plain versions), bf16 output 2e-2 (one bf16 rounding), splats and conv3d
+1e-4 of the output's scale (fp32 sums over up to 27 * 128 terms). The
+plain conv3d runs with TF32 off, so both sides are fp32.
 """
 
 import numpy as np
@@ -16,7 +17,7 @@ import torch
 
 from stereoscene_torch import _build
 from stereoscene_torch.geometry import disparity_positions
-from stereoscene_torch.ops import gwc, splat_plan, voxel_pool
+from stereoscene_torch.ops import conv3d, gwc, splat_plan, voxel_pool
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +27,10 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels build with nvcc)")
     _build.load_kernels()
-    return torch.device("cuda", 0)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _features(dev, seed, b, h, w, c, dtype=torch.float32):
@@ -78,8 +82,8 @@ def test_gwc_kernel_refuses_what_it_does_not_take(dev):
         gwc.fused_gwc_warp(left.half(), right.half(), pos, 4, 2)
     with pytest.raises(ValueError):
         gwc.fused_gwc_warp(left, right, pos, 4, 3)
-    with pytest.raises(NotImplementedError):
-        gwc.fused_gwc_warp(left.requires_grad_(), right, pos, 4, 2)
+    with pytest.raises(ValueError):
+        gwc.fused_gwc_warp(left, right.cpu(), pos, 4, 2)
 
 
 def _splat_problem(dev, seed, d=6, fh=4, fw=5, c=128, nvox=512):
@@ -123,3 +127,69 @@ def test_splat_sorted_kernel_matches_plain(dev):
     want = voxel_pool.splat_sorted(vals, rs, nvox, use_kernel=False)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
+
+
+def test_gwc_backward_matches_plain(dev):
+    """The K1 Function's grads against autograd through the plain pair;
+    positions get a zero grad."""
+    left, right = _features(dev, 4, 2, 6, 20, 16)
+    pos = disparity_positions(torch.tensor([60.0, 25.0], device=dev), 12)
+    g = torch.randn(2, 12, 6, 20, 4, device=dev)
+    ins = [t.clone().requires_grad_() for t in (left, right, pos)]
+    before = _build.launch_counts["gwc_warp"]
+    (gwc.fused_gwc_warp(*ins, 12, 4) * g).sum().backward()
+    assert _build.launch_counts["gwc_warp"] == before + 1
+    ref = [t.clone().requires_grad_() for t in (left, right)]
+    (gwc.gwc_warp_plain(*ref, pos, 12, 4) * g).sum().backward()
+    for got, want in zip(ins[:2], ref):
+        torch.testing.assert_close(got.grad, want.grad, rtol=1e-5, atol=1e-5)
+    assert not ins[2].grad.any()
+
+
+def _volume(dev, seed, shape, dtype=torch.float32):
+    b, ci, d, h, w, co = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, ci, d, h, w, generator=gen, device=dev)
+    wt = torch.randn(co, ci, 3, 3, 3, generator=gen, device=dev) * ci ** -0.5
+    return x.to(dtype), wt.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 64, 5, 6, 7, 64), (2, 128, 4, 3, 9, 72),
+                                   (1, 64, 56, 24, 80, 64),
+                                   (1, 128, 28, 12, 40, 128),
+                                   (1, 128, 64, 64, 8, 128)])
+def test_conv3d_kernel_matches_plain(dev, dtype, shape):
+    """Odd W, Co off the 64-tile, and the three flagship shapes."""
+    x, wt = _volume(dev, 5, shape, dtype)
+    before = _build.launch_counts["conv3d_s1"]
+    got = conv3d.conv3d_s1(x, wt)
+    assert _build.launch_counts["conv3d_s1"] == before + 1
+    want = conv3d.conv3d_s1_plain(x, wt)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * float(want.float().abs().max()))
+
+
+def test_conv3d_kernel_refuses_what_it_does_not_take(dev):
+    x, wt = _volume(dev, 6, (1, 32, 4, 4, 4, 64))
+    with pytest.raises(ValueError):
+        conv3d.conv3d_s1(x, wt)
+    x, wt = _volume(dev, 6, (1, 64, 4, 4, 4, 64))
+    with pytest.raises(TypeError):
+        conv3d.conv3d_s1(x.half(), wt.half())
+    with pytest.raises(ValueError):
+        conv3d.conv3d_s1(x, wt.cpu())
+
+
+def test_conv3d_backward_matches_plain(dev):
+    x, wt = _volume(dev, 7, (2, 64, 4, 5, 6, 64))
+    g = torch.randn(2, 64, 4, 5, 6, device=dev)
+    ins = [t.clone().requires_grad_() for t in (x, wt)]
+    (conv3d.conv3d_s1(*ins) * g).sum().backward()
+    ref = [t.clone().requires_grad_() for t in (x, wt)]
+    (conv3d.conv3d_s1_plain(*ref) * g).sum().backward()
+    for got, want in zip(ins, ref):
+        torch.testing.assert_close(got.grad, want.grad, rtol=1e-5, atol=1e-4)

@@ -35,8 +35,9 @@ from tests.test_models import TINY, _tiny_batch
 CAM = 30
 
 
-def port_model(seed=7):
-    model = BEVDepthOccupancy(DetectorConfig(**dataclasses.asdict(TINY)))
+def port_model(seed=7, **kwargs):
+    model = BEVDepthOccupancy(DetectorConfig(**dataclasses.asdict(TINY)),
+                              device="cpu", **kwargs)
     seeded_init_(model, seed)
     return model
 
