@@ -17,6 +17,17 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    versions on the real group-8 splat plan of the flagship calibration;
 4. K4 (implicit-GEMM conv3d) against its plain version at the three
    flagship shapes, fp32 (1e-4 of max|ref|) and bf16 (2e-2 of max|ref|);
+4b. P1 (the DCN gather) at the flagship DepthNet DCN [1, 48, 160, 640],
+   G = 4, with the Pallas probe's offsets (randn * 1.5) and the seeded
+   offset head's: the kernel against its plain version (fp32 1e-5, bf16
+   2e-2 of max|ref|), the whole z-gather route against the plain gather
+   DCN (fp32, 1e-5), and its autograd Function's gradients (x, offsets,
+   weights) against plain autograd (fp32, 1e-5 of each gradient's max);
+   timed beside ``F.embedding_bag`` on the corner tables (held to the
+   same tolerances);
+4c. P2 (the row gather) at the Pallas probe's shapes, feat [7680, 128], for
+   the three index layouts [1024, 128], [1024, 1] and [1024]: bitwise
+   equal to its plain version; timed beside ``torch.take_along_dim``;
 5. the flagship forward (EfficientNet-b7, 384x1280, D = 112, the 64x64x8
    grid of 0.8 m voxels) in fp32 with and without the kernels, seeded
    random weights;
@@ -24,13 +35,23 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    calibration) through ``BEVDepthOccupancy.infer`` -> [256, 256, 32]
    class maps; per-stage and per-frame milliseconds;
 7. training: one synthetic labelled batch from the seed; (a) one fp32 step
-   built with the kernels (K1, K4) and one without, losses within 1e-4 and
-   every gradient leaf within 2% of its scale (floor 1e-4 of the global
+   built with the kernels (K1, P1, K4) and one without, losses within 1e-4
+   and every gradient leaf within 2% of its scale (floor 1e-4 of the global
    scale); (b) six bf16 steps with the kernels: finite, falling losses, ms
-   per step and peak memory.
+   per step and peak memory;
+8. eval: a full-size SemanticKITTI tree of four seeded frames (376x1241
+   stereo PNGs, calib.txt, voxel labels [256, 256, 32] with ignore labels)
+   and a checkpoint of the seeded fp32 flagship, written under TMPDIR; the
+   eval CLI ``stereoscene_torch.tools.test.main`` on the card writes the
+   ``.label`` / ``.npy`` predictions, then scores; the same checkpoint
+   through ``engine.loop.run_evaluation`` without the kernels: predictions
+   agree on at least 99.99% of voxels, every ``semkitti_*`` metric within
+   0.01 points, each ``.label`` file is ``inv_map`` of its ``.npy``;
+   frames per second and ``eval_time_s``, PNG decoding included.
 
-Then one JSON line with each kernel (its launches in the serving and bf16
-training runs, its error, its times and its bound from phases 2-4; the
+Then one JSON line with each kernel (its launches in the serving, bf16
+training and eval runs, each counted from 0 just before its run, its
+error, its times and its bound from phases 2-4c; the
 bound is the larger of the bytes it must move over 3.35 TB/s and its
 operations over the H100 SXM datasheet's peak for their type, 989 TFLOP/s
 bf16 dense, 67 TFLOP/s fp32) and, last, the ok line. Every time is
@@ -41,8 +62,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -52,6 +75,9 @@ SEED = 0
 FX, BASELINE = 707.0, 0.54  # bench.py:55-82 flagship calibration
 N_REQUESTS = 3
 N_TRAIN_STEPS = 6
+N_EVAL_FRAMES = 4
+LABEL_SHAPE = (256, 256, 32)
+EVAL_CONFIG = "stereoscene_semantickitti.py"  # the flagship's config file
 # H100 SXM datasheet peaks (dense, without sparsity)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -298,6 +324,294 @@ def phase_conv3d(dev, conv3d) -> dict:
     return dict(max_abs_err=worst, **total)
 
 
+def dcn_library(z, idx, wgt):
+    """P1's function as one PyTorch call, ``F.embedding_bag`` in sum mode
+    over z's rows with the corner tables as bags of 4 * K samples (the
+    weights in z's dtype, as the probe casts them); timed, never used by
+    the port."""
+    k, n, c = z.shape
+    flat = (idx.long() + (torch.arange(k, device=z.device) * n)[None, :, None]
+            ).reshape(n, -1)
+    table, per_sample = z.reshape(k * n, c), wgt.reshape(n, -1).to(z.dtype)
+    return lambda: torch.nn.functional.embedding_bag(
+        flat, table, per_sample_weights=per_sample, mode="sum")
+
+
+def phase_dcn(model, dev, deform_conv) -> dict:
+    """P1 at the flagship DepthNet DCN: x [1, fH, fW, 640], G = 4, the
+    seeded model's tap weights; offsets at the probe's scale and from the
+    seeded offset head. Times in bf16 (serving's dtype)."""
+    dcn = model.img_view_transformer.depth_net.depth_conv[4]
+    fh, fw = model.cfg.feature_size
+    c, groups = dcn.weight.shape[0], dcn.groups
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x = torch.randn(1, fh, fw, c, generator=gen, device=dev)
+    taps = (dcn.weight.detach().reshape(c, c // groups, 9).permute(2, 1, 0)
+            .contiguous())
+    with torch.no_grad():
+        seeded = dcn.conv_offset(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    offsets = {"probe": torch.randn(1, fh, fw, 18, generator=gen,
+                                    device=dev) * 1.5,
+               "seeded": seeded.contiguous()}
+    errs = {}
+    for name, off in offsets.items():
+        idx, wgt = deform_conv.dcn_corner_tables(off, fh, fw)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            z = deform_conv.dcn_z(x.to(dtype), taps.to(dtype), groups)
+            want = deform_conv.dcn_gather_plain(z, off)
+            limit = tol * float(want.float().abs().max())
+            errs[name, dtype] = check_close(
+                f"dcn gather {name} {dtype}",
+                deform_conv.dcn_gather_kernel(z, off), want, limit, 0.0)
+            errs[name, dtype, "library"] = check_close(
+                f"dcn embedding_bag {name} {dtype}",
+                dcn_library(z, idx, wgt)(), want, limit, 0.0)
+        with torch.no_grad():
+            want = deform_conv.deform_conv2d_plain(x, off, taps, groups)
+            errs[name, "route"] = check_close(
+                f"dcn route {name}",
+                deform_conv.deform_conv2d(x, off, taps, groups,
+                                          use_kernel=True),
+                want, 1e-5 * float(want.abs().max()), 0.0)
+
+    g = torch.randn(1, fh, fw, c, generator=gen, device=dev)
+    ins = [t.clone().requires_grad_() for t in (x, offsets["probe"], taps)]
+    (deform_conv.deform_conv2d(*ins, groups, use_kernel=True) * g).sum() \
+        .backward()
+    ref = [t.clone().requires_grad_() for t in (x, offsets["probe"], taps)]
+    (deform_conv.deform_conv2d_plain(*ref, groups) * g).sum().backward()
+    grad_errs = [check_close(f"dcn backward d{n}", a.grad, b.grad,
+                             1e-5 * float(b.grad.abs().max()), 0.0)
+                 for n, a, b in zip(("x", "offsets", "weights"), ins, ref)]
+    if float(ins[1].grad.abs().max()) == 0.0:
+        raise AssertionError("dcn backward: zero offset gradient")
+    del ins, ref, g
+
+    off = offsets["seeded"]
+    idx, wgt = deform_conv.dcn_corner_tables(off, fh, fw)
+    xb, tb = x.bfloat16(), taps.bfloat16()
+    zb = deform_conv.dcn_z(xb, tb, groups)
+    z32 = deform_conv.dcn_z(x, taps, groups)
+    ms = cuda_ms(lambda: deform_conv.dcn_gather_kernel(zb, off))
+    plain = cuda_ms(lambda: deform_conv.dcn_gather_plain(zb, off))
+    lib = cuda_ms(dcn_library(zb, idx, wgt))
+    ms32 = cuda_ms(lambda: deform_conv.dcn_gather_kernel(z32, off))
+    lib32 = cuda_ms(dcn_library(z32, idx, wgt))
+    zms = cuda_ms(lambda: deform_conv.dcn_z(xb, tb, groups))
+    with torch.no_grad():
+        route = cuda_ms(lambda: deform_conv.deform_conv2d(
+            xb, off, tb, groups, use_kernel=True))
+        route_plain = cuda_ms(lambda: deform_conv.deform_conv2d_plain(
+            xb, off, tb, groups))
+    out = deform_conv.dcn_gather_kernel(zb, off)
+    # z, the offsets as the kernel reads them (fp32) and the output; 36
+    # fp32 multiply-adds per output value
+    moved = nbytes(zb, off.float(), out)
+    p1 = dict(max_abs_err=max(v for k, v in errs.items()
+                              if k[1] == torch.float32 and len(k) == 2),
+              ms=ms, plain_ms=plain, library_ms=lib,
+              **bound(moved, 2 * 36 * out.numel(), torch.float32))
+    print(f"phase 4b P1 dcn_gather [1, {fh}, {fw}, {c}] G {groups}: max abs "
+          f"err kernel vs plain fp32 probe {errs['probe', torch.float32]:.3e} "
+          f"seeded {errs['seeded', torch.float32]:.3e}, bf16 probe "
+          f"{errs['probe', torch.bfloat16]:.3e} seeded "
+          f"{errs['seeded', torch.bfloat16]:.3e}; embedding_bag vs plain "
+          f"fp32 {errs['seeded', torch.float32, 'library']:.3e} bf16 "
+          f"{errs['seeded', torch.bfloat16, 'library']:.3e}; route vs plain "
+          f"gather DCN fp32 probe {errs['probe', 'route']:.3e} seeded "
+          f"{errs['seeded', 'route']:.3e}; backward dx {grad_errs[0]:.3e} "
+          f"doffsets {grad_errs[1]:.3e} dweights {grad_errs[2]:.3e}; median "
+          f"of 20, bf16: kernel {ms:.4f} ms plain {plain:.4f} ms "
+          f"embedding_bag {lib:.4f} ms bound {p1['bound_ms']:.4f} ms "
+          f"({p1['bound_by']}, {moved / 1e6:.1f} MB), fp32: kernel "
+          f"{ms32:.4f} ms embedding_bag {lib32:.4f} ms; whole DCN bf16: "
+          f"z-gather route {route:.4f} ms (z {zms:.4f} ms), plain gather "
+          f"DCN {route_plain:.4f} ms", flush=True)
+    return p1
+
+
+def phase_take_rows(dev, gather) -> dict:
+    """P2 at the probe's shapes for its three index layouts; the
+    kernels-line entry sums the three (one launch each). The bound counts
+    the table rows this run's indices touch, not the whole table."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows, c, m = 7680, 128, 1024
+    feat = torch.randn(rows, c, generator=gen, device=dev)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    moved, parts = 0, []
+    for name, shape in (("per element", (m, c)), ("per row", (m, 1)),
+                        ("flat", (m,))):
+        idx = torch.randint(0, rows, shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+        got = gather.take_along_rows(feat, idx, use_kernel=True)
+        want = gather.take_along_rows(feat, idx, use_kernel=False)
+        idx64 = idx.long().reshape(m, -1)
+        lib_out = torch.take_along_dim(feat, idx64, dim=0)
+        if not (torch.equal(got, want) and torch.equal(lib_out, want)):
+            raise AssertionError(f"take_rows {name}: not bitwise equal")
+        ms = cuda_ms(lambda: gather.take_along_rows(feat, idx,
+                                                    use_kernel=True))
+        plain = cuda_ms(lambda: gather.take_along_rows(feat, idx,
+                                                       use_kernel=False))
+        lib = cuda_ms(lambda: torch.take_along_dim(feat, idx64, dim=0))
+        if idx64.shape[1] == 1:
+            touched = int(torch.unique(idx64).numel()) * c * 4
+        else:  # distinct (row, column) elements
+            cols = torch.arange(c, device=dev)
+            touched = int(torch.unique(idx64 * c + cols).numel()) * 4
+        b = nbytes(idx, got) + touched
+        moved += b
+        for key, value in (("ms", ms), ("plain_ms", plain),
+                           ("library_ms", lib)):
+            total[key] += value
+        parts.append(f"{name} idx {list(shape)}: kernel {ms:.4f} ms plain "
+                     f"{plain:.4f} ms take_along_dim {lib:.4f} ms, "
+                     f"{b / 1e6:.2f} MB")
+    total.update(bound(moved, 0, torch.float32))
+    print(f"phase 4c P2 take_rows feat [{rows}, {c}] -> [{m}, {c}], bitwise "
+          f"equal to plain in all three layouts (median of 20): "
+          + " | ".join(parts) + f" | sum bound {total['bound_ms']:.5f} ms "
+          "(bytes; launch latency dominates at this size)", flush=True)
+    return dict(max_abs_err=0.0, **total)
+
+
+def write_semkitti_tree(root: str, n_frames: int) -> tuple:
+    """A SemanticKITTI tree at full size under ``root``: sequence 08 (the
+    val split) with ``n_frames`` seeded 376x1241 stereo PNG pairs, a
+    calib.txt of the flagship calibration (fx 707, baseline 0.54 m, the
+    velodyne axes of bench.py's rotation), ``voxels/*.bin`` frame markers
+    and voxel labels [256, 256, 32] uint8 (60% empty, 10% ignore 255)
+    -> (data_root, ann_file)."""
+    from PIL import Image
+
+    seq = os.path.join(root, "dataset", "sequences", "08")
+    ann = os.path.join(root, "labels")
+    for sub in ("image_2", "image_3", "voxels"):
+        os.makedirs(os.path.join(seq, sub))
+    os.makedirs(os.path.join(ann, "08"))
+    p2 = f"{FX} 0 620.5 0 0 {FX} 188.0 0 0 0 1 0"
+    p3 = f"{FX} 0 620.5 {-FX * BASELINE} 0 {FX} 188.0 0 0 0 1 0"
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        f.write(f"P0: {p2}\nP1: {p3}\nP2: {p2}\nP3: {p3}\n"
+                "Tr: 0 -1 0 0 0 0 -1 0 1 0 0 0\n")
+    rng = np.random.default_rng(SEED + 100)
+    ramp = np.linspace(0, 160, 1241)[None, :, None]
+    for i in range(n_frames):
+        fid = f"{i:06d}"
+        for cam in ("image_2", "image_3"):
+            img = ramp + rng.integers(0, 96, (376, 1241, 3))
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(seq, cam, fid + ".png"))
+        with open(os.path.join(seq, "voxels", fid + ".bin"), "wb") as f:
+            f.write(b"\0")
+        occ = rng.integers(1, 20, LABEL_SHAPE)
+        occ[rng.random(LABEL_SHAPE) < 0.6] = 0
+        occ[rng.random(LABEL_SHAPE) < 0.1] = 255
+        np.save(os.path.join(ann, "08", f"{fid}_1_1.npy"),
+                occ.astype(np.uint8))
+    return root, ann
+
+
+def phase_eval(dev, build, card: str, seeded_init_) -> dict:
+    """The eval CLI (``stereoscene_torch.tools.test.main``) on the card
+    over a full-size SemanticKITTI tree, with a seeded checkpoint: once
+    writing predictions, once scoring; then the same checkpoint through
+    ``run_evaluation`` without the kernels. Returns the launches of the
+    scoring run."""
+    import stereoscene_torch
+    from stereoscene_torch.config import Config, merge_from_options
+    from stereoscene_torch.data.labels import inv_map
+    from stereoscene_torch.engine.eval import make_eval_step
+    from stereoscene_torch.engine.loop import run_evaluation
+    from stereoscene_torch.models.detector import (
+        BEVDepthOccupancy,
+        DetectorConfig,
+    )
+    from stereoscene_torch.tools import test as cli
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = os.path.join(os.path.dirname(stereoscene_torch.__file__),
+                          "configs", EVAL_CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root, ann = write_semkitti_tree(tmp, N_EVAL_FRAMES)
+        opts = [f"data.val.data_root={root}", f"data.val.ann_file={ann}"]
+        cfg = Config.fromfile(config)
+        merge_from_options(cfg, opts)
+        model = BEVDepthOccupancy(DetectorConfig.from_config(cfg),
+                                  device=dev, label_shape=LABEL_SHAPE)
+        seeded_init_(model, SEED)
+        ckpt = os.path.join(tmp, "seeded.pth")
+        torch.save({"state_dict": model.state_dict()}, ckpt)
+        setup_s = time.perf_counter() - t0
+        argv = [config, "--checkpoint", ckpt, "--device", dev.type]
+        sub, pred_dir = os.path.join(tmp, "submission"), os.path.join(
+            tmp, "pred")
+        cli.main(argv + ["--submission-dir", sub, "--save-pred-dir",
+                         pred_dir, "--cfg-options", *opts])
+        build.launch_counts.clear()
+        res_k = cli.main(argv + ["--cfg-options", *opts])
+        launches = dict(build.launch_counts)
+
+        index, loader = cli.make_loader(cfg, "val", 1)
+        eval_step, preds = make_eval_step(LABEL_SHAPE), []
+
+        def step(model, batch, state, use_kernel=None):
+            pred, state = eval_step(model, batch, state, use_kernel)
+            preds.append(pred.to(torch.uint8).cpu().numpy())
+            return pred, state
+
+        build.launch_counts.clear()
+        res_p = run_evaluation(model, step, loader, use_kernel=False,
+                               progress=False)
+        if build.launch_counts:
+            raise AssertionError(f"eval without kernels launched "
+                                 f"{dict(build.launch_counts)}")
+        pred_p = np.concatenate(preds)
+        lut, pred_k = inv_map(), []
+        for frame in index.frames:
+            name = f"{frame.sequence}_{frame.frame_id}"
+            pred_k.append(np.load(os.path.join(pred_dir, name + ".npy")))
+            raw = np.fromfile(os.path.join(
+                sub, "sequences", frame.sequence, "predictions",
+                frame.frame_id + ".label"), np.uint16)
+            if raw.size != int(np.prod(LABEL_SHAPE)) or not np.array_equal(
+                    raw, lut[pred_k[-1].reshape(-1)]):
+                raise AssertionError(f"eval .label file of {name}: "
+                                     f"{raw.size} values, not the inv_map "
+                                     "of its .npy prediction")
+    pred_k = np.stack(pred_k)
+    if res_k["eval_frames"] != N_EVAL_FRAMES or pred_k.shape != (
+            N_EVAL_FRAMES,) + LABEL_SHAPE or pred_p.shape != pred_k.shape:
+        raise AssertionError(f"eval: {res_k['eval_frames']} frames, "
+                             f"predictions {pred_k.shape} / {pred_p.shape}")
+    agree = float((pred_k == pred_p).mean())
+    diffs = {k: abs(res_k[k] - res_p[k]) for k in res_k
+             if k.startswith("semkitti_")}
+    bad = {k: v for k, v in diffs.items() if not v <= 0.01
+           and not (math.isnan(res_k[k]) and math.isnan(res_p[k]))}
+    if agree < 0.9999 or bad:
+        raise AssertionError(f"eval kernels vs plain: voxel agreement "
+                             f"{agree:.6f} (limit 0.9999), metrics off by "
+                             f"more than 0.01: {bad}")
+    keys = ("semkitti_SC_IoU", "semkitti_SSC_mIoU")
+    print(f"phase 8 fp32 eval CLI on {card}: {N_EVAL_FRAMES} frames of "
+          f"376x1241 stereo PNGs -> {cfg['data_config']['input_size']}, "
+          f"gt_occ {list(LABEL_SHAPE)} (tree and checkpoint written in "
+          f"{setup_s:.1f} s); tools.test.main with the kernels eval_time_s "
+          f"{res_k['eval_time_s']:.3f} "
+          f"({N_EVAL_FRAMES / res_k['eval_time_s']:.3f} frames/s), "
+          f"run_evaluation without {res_p['eval_time_s']:.3f} "
+          f"({N_EVAL_FRAMES / res_p['eval_time_s']:.3f} frames/s), loading "
+          f"and decoding included; voxel agreement {agree:.6f}; "
+          f"{', '.join(f'{k} {res_k[k]}' for k in keys)}; largest metric "
+          f"difference {max(diffs.values()):.4f} points; {N_EVAL_FRAMES} "
+          f".label files equal to inv_map of the .npy predictions; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def phase_fp32_forward(model, batch, build) -> None:
     """Flagship forward in fp32 with and without the kernels."""
     torch.backends.cudnn.allow_tf32 = False
@@ -307,7 +621,8 @@ def phase_fp32_forward(model, batch, build) -> None:
     counts = dict(build.launch_counts)
     without = model(batch, use_kernel=False)
     torch.cuda.synchronize()
-    if counts.get("gwc_warp") != 1 or counts.get("lift_splat_fused") != 1:
+    if any(counts.get(k) != 1 for k in ("gwc_warp", "lift_splat_fused",
+                                        "dcn_gather")):
         raise AssertionError(f"fp32 forward launch counts {counts}")
     if build.launch_counts != counts:
         raise AssertionError("use_kernel=False launched a kernel")
@@ -432,7 +747,8 @@ def phase_train(cfg, dev, build, train, seeded_init_, model_cls) -> dict:
                      [n for n, _ in state.trainable]))
         del model, state
     (tk, lk, gk, ck, names), (tp, lp, gp, cp, _) = runs
-    if ck.get("gwc_warp") != 1 or ck.get("conv3d_s1", 0) < 12 or cp:
+    if (ck.get("gwc_warp") != 1 or ck.get("dcn_gather") != 1
+            or ck.get("conv3d_s1", 0) < 12 or cp):
         raise AssertionError(f"fp32 step launches: kernels {ck}, plain {cp}")
     if not (torch.isfinite(tk)
             and abs(float(tk - tp)) <= 1e-4 * abs(float(tp))):
@@ -479,7 +795,8 @@ def phase_train(cfg, dev, build, train, seeded_init_, model_cls) -> dict:
     if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"bf16 steps: losses {losses}")
     per_step = {k: v / N_TRAIN_STEPS for k, v in launches.items()}
-    if per_step.get("gwc_warp") != 1 or per_step.get("conv3d_s1", 0) < 12:
+    if (per_step.get("gwc_warp") != 1 or per_step.get("dcn_gather") != 1
+            or per_step.get("conv3d_s1", 0) < 12):
         raise AssertionError(f"bf16 steps: launches {launches}")
     print(f"phase 7b bf16 training, {N_TRAIN_STEPS} steps of B = 1 at "
           f"{cfg.input_size[0]}x{cfg.input_size[1]}, EfficientNet-"
@@ -500,7 +817,13 @@ def main() -> None:
         BEVDepthOccupancy,
         DetectorConfig,
     )
-    from stereoscene_torch.ops import conv3d, gwc, voxel_pool
+    from stereoscene_torch.ops import (
+        conv3d,
+        deform_conv,
+        gather,
+        gwc,
+        voxel_pool,
+    )
     from stereoscene_torch.utils.weights import seeded_init_
 
     smi = subprocess.run(
@@ -530,6 +853,8 @@ def main() -> None:
     k3, k2 = phase_splat(model, flagship_batch(cfg, SEED, "cpu"), dev,
                          voxel_pool)
     k4 = phase_conv3d(dev, conv3d)
+    p1 = phase_dcn(model, dev, deform_conv)
+    p2 = phase_take_rows(dev, gather)
 
     phase_fp32_forward(model, flagship_batch(cfg, SEED, dev), _build)
     serving = phase_serve(model, cfg, dev, _build, card)
@@ -538,10 +863,14 @@ def main() -> None:
 
     training = phase_train(DetectorConfig(), dev, _build, train,
                            seeded_init_, BEVDepthOccupancy)
-    for path, counts, needs in (("serving", serving,
-                                 ("gwc_warp", "lift_splat_fused")),
-                                ("training", training,
-                                 ("gwc_warp", "conv3d_s1"))):
+    torch.cuda.empty_cache()
+    evaluation = phase_eval(dev, _build, card, seeded_init_)
+    for path, counts, needs in (
+            ("serving", serving, ("gwc_warp", "dcn_gather",
+                                  "lift_splat_fused")),
+            ("training", training, ("gwc_warp", "dcn_gather", "conv3d_s1")),
+            ("eval", evaluation, ("gwc_warp", "dcn_gather",
+                                  "lift_splat_fused"))):
         for name in needs:
             if counts.get(name, 0) < 1:
                 raise AssertionError(f"{name} never launched in {path}")
@@ -555,10 +884,15 @@ def main() -> None:
              replaces="stereoscene_tpu/ops/pallas_splat_fused.py:104", **k3),
         dict(name="conv3d_s1", source="stereoscene_torch/csrc/conv3d.cu",
              replaces="stereoscene_tpu/ops/pallas_conv3d.py:102", **k4),
+        dict(name="dcn_gather", source="stereoscene_torch/csrc/dcn.cu",
+             replaces="tools/probe_pallas_dcn.py:125", **p1),
+        dict(name="take_rows", source="stereoscene_torch/csrc/gather.cu",
+             replaces="tools/probe_gather.py:27", **p2),
     ]
     for k in kernels:
         k["route"] = "cuda"
-        k["launches"] = serving.get(k["name"], 0) + training.get(k["name"], 0)
+        k["launches"] = sum(run.get(k["name"], 0)
+                            for run in (serving, training, evaluation))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

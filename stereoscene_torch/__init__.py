@@ -1,9 +1,10 @@
-"""PyTorch / CUDA port of StereoScene inference and training for NVIDIA
-Hopper.
+"""PyTorch / CUDA port of StereoScene inference, training and evaluation
+for NVIDIA Hopper.
 
 The JAX package ``stereoscene_tpu`` stays the reference; this package keeps
-its layout (``geometry``, ``ops/``, ``models/``, ``losses/``, ``engine/``,
-``utils/``) and names. It imports ``torch`` and never ``jax``. The
+its layout (``config``, ``configs/``, ``data/``, ``geometry``, ``metrics``,
+``ops/``, ``models/``, ``losses/``, ``engine/``, ``utils/``; the eval CLI in
+``tools/``) and names. It imports ``torch`` and never ``jax``. The
 hand-written kernels live in ``csrc/`` and are built at first use by
 ``_build.load_kernels``.
 """

@@ -49,6 +49,10 @@ SIGNATURES = {
     "stereoscene_splat_sorted": [_P] * 3 + [_I] * 2 + [_P],
     # x, w, y, B, D, H, W, Ci, Co, bf16, stream
     "stereoscene_conv3d_s1": [_P] * 3 + [_I] * 7 + [_P],
+    # z, offsets, out, N, C, H, W, kw, z_bf16, stream
+    "stereoscene_dcn_gather": [_P] * 3 + [_I] * 6 + [_P],
+    # feat, idx, out, M, C, R, idx_col_stride, stream
+    "stereoscene_take_rows": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 launch_counts: "collections.Counter[str]" = collections.Counter()

@@ -4,11 +4,12 @@
 
 GN(2)-normalised camera embedding, SE-conditioned context and depth paths;
 depth path = 3 BasicBlocks -> ASPP (dilations 1/6/12/18 + pooled branch)
--> DCNv1 (groups 4, zero-init offset conv) -> 1x1 to D logits. Output is
-the channel concat [depth logits | context]. The ASPP branches are plain
-dilated convolutions (the JAX package's tap-matmul lowering is a TPU
-layout choice for the same math). In training mode the ASPP output goes
-through dropout at rate 0.5 (depth_net.py:137 of the JAX package).
+-> DCNv1 (groups 4, zero-init offset conv; the P1 kernel on the card)
+-> 1x1 to D logits. Output is the channel concat [depth logits | context].
+The ASPP branches are plain dilated convolutions (the JAX package's
+tap-matmul lowering is a TPU layout choice for the same math). In training
+mode the ASPP output goes through dropout at rate 0.5 (depth_net.py:137 of
+the JAX package).
 """
 
 from __future__ import annotations
@@ -87,12 +88,13 @@ class DeformConvPack(nn.Module):
         nn.init.zeros_(self.conv_offset.weight)
         nn.init.zeros_(self.conv_offset.bias)
 
-    def forward(self, x):
+    def forward(self, x, use_kernel=None):
+        """``use_kernel`` goes to ``ops.deform_conv.deform_conv2d`` (P1)."""
         offsets = self.conv_offset(x).permute(0, 2, 3, 1)
         cout, cing = self.weight.shape[:2]
         taps = self.weight.reshape(cout, cing, 9).permute(2, 1, 0)
         y = deform_conv2d(x.permute(0, 2, 3, 1), offsets, taps,
-                          groups=self.groups)
+                          groups=self.groups, use_kernel=use_kernel)
         return y.permute(0, 3, 1, 2)
 
 
@@ -116,14 +118,19 @@ class DepthNet(nn.Module):
             ASPP(mid, mid), DeformConvPack(mid),
             nn.Conv2d(mid, depth_channels, 1))
 
-    def forward(self, x, mlp_input, generator=None):
-        """``generator`` seeds the ASPP dropout in training mode."""
+    def forward(self, x, mlp_input, generator=None, use_kernel=None):
+        """``generator`` seeds the ASPP dropout in training mode;
+        ``use_kernel`` goes to the DCN (P1)."""
         mlp_input = self.bn(mlp_input)
         x = self.reduce_conv(x)
         context = self.context_conv(
             self.context_se(x, self.context_mlp(mlp_input)))
         depth = self.depth_se(x, self.depth_mlp(mlp_input))
         for layer in self.depth_conv:
-            depth = (layer(depth, generator) if isinstance(layer, ASPP)
-                     else layer(depth))
+            if isinstance(layer, ASPP):
+                depth = layer(depth, generator)
+            elif isinstance(layer, DeformConvPack):
+                depth = layer(depth, use_kernel)
+            else:
+                depth = layer(depth)
         return torch.cat([depth, context], dim=1)

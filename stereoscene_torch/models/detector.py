@@ -11,10 +11,10 @@ serving tail: trilinear upsample to the label grid and argmax.
 The batch is the JAX package's dict (channels-last images, KITTI 3x4
 intrinsics; see ``BEVDepthOccupancy.forward``) as torch tensors on one
 device. ``use_kernel`` picks the hand-written CUDA kernels (K1
-``fused_gwc_warp``, K3 ``lift_splat_fused``); None means "the kernels when
-the tensors are on CUDA". The model is built with ``conv3d_kernel=True`` to
-send the hourglass and ResNet3D convs the JAX package's gate picks to K4
-(``layers.Conv3d``).
+``fused_gwc_warp``, P1 ``deform_conv2d``, K3 ``lift_splat_fused``); None
+means "the kernels when the tensors are on CUDA". The model is built with
+``conv3d_kernel=True`` to send the hourglass and ResNet3D convs the JAX
+package's gate picks to K4 (``layers.Conv3d``).
 
 Eval mode (the default) is inference, under ``torch.no_grad``; training
 mode (``model.train()``) is the JAX package's ``train=True``: BatchNorm on
@@ -25,7 +25,7 @@ splat unless the batch carries a plan (detector.py:266-288).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn as nn
@@ -96,6 +96,43 @@ class DetectorConfig:
     def grid_shape(self) -> Tuple[int, int, int]:
         _, _, nx = geometry.gen_dx_bx(self.xbound, self.ybound, self.zbound)
         return (int(nx[0]), int(nx[1]), int(nx[2]))
+
+    @classmethod
+    def from_config(cls, cfg: Dict[str, Any]) -> "DetectorConfig":
+        """Build from a reference-style config dict (stereoscene.py keys),
+        as the JAX package's ``DetectorConfig.from_config``
+        (models/detector.py:113-147)."""
+        model = cfg["model"]
+        vt = model["img_view_transformer"]
+        grid, data = vt["grid_config"], vt["data_config"]
+        bb, neck = model["img_backbone"], model["img_neck"]
+        bev_bb = model["img_bev_encoder_backbone"]
+        bev_neck = model["img_bev_encoder_neck"]
+        return cls(
+            input_size=tuple(data["input_size"]),
+            downsample=vt["downsample"],
+            xbound=tuple(grid["xbound"]),
+            ybound=tuple(grid["ybound"]),
+            zbound=tuple(grid["zbound"]),
+            dbound=tuple(grid["dbound"]),
+            backbone_arch=bb["arch"],
+            backbone_out_indices=tuple(bb["out_indices"]),
+            backbone_drop_path_rate=bb.get("drop_path_rate", 0.0),
+            backbone_with_cp=bb.get("with_cp", False),
+            neck_in_channels=tuple(neck["in_channels"]),
+            neck_upsample_strides=tuple(neck["upsample_strides"]),
+            neck_out_channels=tuple(neck["out_channels"]),
+            numC_Trans=vt["numC_Trans"],
+            cam_channels=vt["cam_channels"],
+            voxel_channels=tuple(bev_bb["block_inplanes"]),
+            voxel_out_indices=tuple(bev_bb["out_indices"]),
+            voxel_out_channels=tuple(bev_neck["out_channels"]),
+            fpn3d_upsample_strides=tuple(bev_neck["upsample_strides"]),
+            out_channel=model["pts_bbox_head"]["out_channel"],
+            resnet_depth=bev_bb["depth"],
+            use_grid_mask=model.get("use_grid_mask", False),
+            norm_groups=bev_bb.get("norm_cfg", {}).get("num_groups", 32),
+        )
 
 
 class BEVDepthOccupancy(nn.Module):

@@ -47,11 +47,11 @@ class ViewTransformerLiftSplatShootVoxel(nn.Module):
         """feat_*: [B, C_in, fH, fW]; mlp_*: [B, cam]; calib: [B]; plan:
         (order, ranks_sorted, bounds) of a ``splat_plan`` plan built with
         ``group == splat_group``, or voxel ranks [B, D*fH*fW] for the
-        dynamic splat; ``use_kernel`` goes to the K1 and K3 wrappers,
+        dynamic splat; ``use_kernel`` goes to the K1, P1 and K3 wrappers,
         ``generator`` to the DepthNet's dropout."""
         stereo = self.stereo_volume_net(feat_left, feat_right, mlp_left,
                                         mlp_right, calib, use_kernel)
-        dn = self.depth_net(feat_left, mlp_left, generator)
+        dn = self.depth_net(feat_left, mlp_left, generator, use_kernel)
         d = self.num_depth
         lss_prob = torch.softmax(dn[:, :d].float(), dim=1).to(feat_left.dtype)
         img_feat = dn[:, d:d + self.numC_Trans]

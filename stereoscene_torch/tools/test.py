@@ -1,0 +1,152 @@
+"""Evaluation / submission CLI, port of ``tools/test.py``
+(ref: tools/test.py + occupancy/apis/test.py:66-139).
+
+Runs inference over the chosen split, streams the SSC metrics and prints
+them, or, with ``--submission-dir`` / ``--save-pred-dir``, writes each
+frame's prediction: SemanticKITTI benchmark ``.label`` files (argmax ->
+``inv_map``, uint16) and / or the class grid as uint8 ``.npy``.
+
+    python -m stereoscene_torch.tools.test CONFIG --checkpoint ckpt.pth \\
+        [--split val] [--batch-size 1] [--device cuda] \\
+        [--cfg-options key.path=value ...] \\
+        [--submission-dir DIR] [--save-pred-dir DIR]
+
+``--checkpoint`` takes a checkpoint in the reference's key layout (the
+``state_dict`` entry of a training checkpoint, or the bare dict) and loads
+it strictly; without one the weights are the model's seeded initial ones.
+Eval runs in fp32, on the card unless ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import Config, merge_from_options
+from ..data import (
+    BatchLoader,
+    PipelineConfig,
+    SemanticKittiIndex,
+    SemanticKittiPipeline,
+    inv_map,
+)
+from ..data.semantic_kitti import FrameInfo
+from ..engine.eval import make_eval_step
+from ..engine.loop import pad_batch, run_evaluation, to_device
+from ..metrics import empty_state
+from ..models.detector import BEVDepthOccupancy, DetectorConfig
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description="Evaluate a stereoscene_torch model")
+    p.add_argument("config")
+    p.add_argument("--cfg-options", nargs="+", default=None,
+                   help="deep config overrides, key.path=value "
+                        "(mmcv DictAction semantics, ref tools/train.py:69-78)")
+    p.add_argument("--checkpoint", default=None,
+                   help="a .pth in the reference's key layout")
+    p.add_argument("--split", default="val",
+                   choices=["val", "test", "test_submit"])
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--submission-dir", default=None,
+                   help="write benchmark .label files here")
+    p.add_argument("--save-pred-dir", default=None,
+                   help="dump per-frame predicted voxel grids as .npy")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default) or cpu")
+    return p.parse_args(argv)
+
+
+def load_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Load a reference-layout checkpoint strictly (missing or unexpected
+    keys raise)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    model.load_state_dict(ckpt, strict=True)
+
+
+def write_prediction(pred: np.ndarray, frame: FrameInfo,
+                     submission_dir: Optional[str] = None,
+                     save_pred_dir: Optional[str] = None) -> None:
+    """One frame's class grid [X, Y, Z] as
+    ``submission_dir/sequences/<seq>/predictions/<id>.label`` (raw ids via
+    ``inv_map``, uint16, the benchmark's format) and / or
+    ``save_pred_dir/<seq>_<id>.npy`` (uint8 train ids)."""
+    if save_pred_dir:
+        os.makedirs(save_pred_dir, exist_ok=True)
+        np.save(os.path.join(save_pred_dir,
+                             f"{frame.sequence}_{frame.frame_id}.npy"),
+                pred.astype(np.uint8))
+    if submission_dir:
+        out_dir = os.path.join(submission_dir, "sequences", frame.sequence,
+                               "predictions")
+        os.makedirs(out_dir, exist_ok=True)
+        raw = inv_map()[pred.reshape(-1)].astype(np.uint16)
+        raw.tofile(os.path.join(out_dir, frame.frame_id + ".label"))
+
+
+def make_loader(cfg: Config, split: str, batch_size: int):
+    """The config's SemanticKITTI frames of ``split`` through the eval
+    pipeline -> (index, loader in frame order)."""
+    data_cfg = cfg["data"]["val" if split == "val" else "test"]
+    pipe_cfg = PipelineConfig(
+        input_size=tuple(cfg["data_config"]["input_size"]),
+        is_train=False,
+        point_cloud_range=tuple(cfg["point_cloud_range"]),
+    )
+    index = SemanticKittiIndex(data_root=data_cfg["data_root"],
+                               ann_file=data_cfg["ann_file"], split=split)
+    if len(index) == 0:
+        raise SystemExit(f"no frames for split {split}")
+    loader = BatchLoader(index.frames, SemanticKittiPipeline(pipe_cfg),
+                         batch_size=batch_size, shuffle=False,
+                         drop_last=False, num_workers=4)
+    return index, loader
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Run the CLI; returns the metric dict, or None after writing
+    predictions."""
+    args = parse_args(argv)
+    cfg = Config.fromfile(args.config)
+    if args.cfg_options:
+        merge_from_options(cfg, args.cfg_options)
+    det_cfg = DetectorConfig.from_config(cfg)
+    occ_size = tuple(cfg["occ_size"])
+    device = torch.device(args.device)
+    torch.manual_seed(0)
+    model = BEVDepthOccupancy(det_cfg, device=device, label_shape=occ_size)
+    if args.checkpoint:
+        load_checkpoint(model, args.checkpoint)
+        print(f"loaded checkpoint {args.checkpoint}")
+
+    index, loader = make_loader(cfg, args.split, args.batch_size)
+    eval_step = make_eval_step(occ_size)
+
+    if args.submission_dir or args.save_pred_dir:
+        for i, batch in enumerate(loader):
+            n_real = next(iter(batch.values())).shape[0]
+            batch = to_device(pad_batch(batch, args.batch_size), device)
+            pred, _ = eval_step(model, batch, empty_state(device=device))
+            preds = pred[:n_real].cpu().numpy()
+            for j, p in enumerate(preds):
+                write_prediction(p, index.frames[i * args.batch_size + j],
+                                 args.submission_dir, args.save_pred_dir)
+        print("wrote predictions")
+        return None
+
+    results = run_evaluation(model, eval_step, loader)
+    print("\nSemanticKITTI SSC Evaluation")
+    for k, v in results.items():
+        print(f"  {k}: {v}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -7,8 +7,9 @@ elsewhere. This file imports no JAX, so on a machine without it run
 
 Tolerances: fp32 1e-5 (the kernels sum in fp32, in another order than the
 plain versions), bf16 output 2e-2 (one bf16 rounding), splats and conv3d
-1e-4 of the output's scale (fp32 sums over up to 27 * 128 terms). The
-plain conv3d runs with TF32 off, so both sides are fp32.
+1e-4 of the output's scale (fp32 sums over up to 27 * 128 terms), the DCN
+gather 1e-5 (fp32) and 2e-2 (bf16) of the output's scale, the row gather
+exact. The plain conv3d runs with TF32 off, so both sides are fp32.
 """
 
 import numpy as np
@@ -17,7 +18,14 @@ import torch
 
 from stereoscene_torch import _build
 from stereoscene_torch.geometry import disparity_positions
-from stereoscene_torch.ops import conv3d, gwc, splat_plan, voxel_pool
+from stereoscene_torch.ops import (
+    conv3d,
+    deform_conv,
+    gather,
+    gwc,
+    splat_plan,
+    voxel_pool,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -193,3 +201,85 @@ def test_conv3d_backward_matches_plain(dev):
     (conv3d.conv3d_s1_plain(*ref) * g).sum().backward()
     for got, want in zip(ins, ref):
         torch.testing.assert_close(got.grad, want.grad, rtol=1e-5, atol=1e-4)
+
+
+def _dcn_problem(dev, seed, b, h, w, c, groups=4, dtype=torch.float32):
+    """x, offsets at the probe's scale (randn * 1.5, samples off the map
+    included) and tap weights [9, C / G, C]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=gen, device=dev)
+    offsets = torch.randn(b, h, w, 18, generator=gen, device=dev) * 1.5
+    weights = torch.randn(9, c // groups, c, generator=gen, device=dev)
+    return x.to(dtype), offsets, (weights * 0.02).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 7, 9, 64), (1, 48, 160, 640)])
+def test_dcn_gather_kernel_matches_plain(dev, dtype, shape):
+    x, offsets, weights = _dcn_problem(dev, 8, *shape, dtype=dtype)
+    z = deform_conv.dcn_z(x, weights, 4)
+    before = _build.launch_counts["dcn_gather"]
+    got = deform_conv.dcn_gather_kernel(z, offsets)
+    assert _build.launch_counts["dcn_gather"] == before + 1
+    want = deform_conv.dcn_gather_plain(z, offsets)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * float(want.float().abs().max()))
+
+
+def test_dcn_route_and_gradients_match_plain(dev):
+    """The kernel route against the plain gather DCN in fp32, and the
+    Function's gradients (offsets included) against plain autograd."""
+    x, offsets, weights = _dcn_problem(dev, 9, 2, 6, 11, 32)
+    g = torch.randn(2, 6, 11, 32, device=dev)
+    ins = [t.clone().requires_grad_() for t in (x, offsets, weights)]
+    out = deform_conv.deform_conv2d(*ins, groups=4)
+    ref = [t.clone().requires_grad_() for t in (x, offsets, weights)]
+    want = deform_conv.deform_conv2d_plain(*ref, groups=4)
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=1e-5 * float(want.detach().abs().max()))
+    (out * g).sum().backward()
+    (want * g).sum().backward()
+    for got, exp in zip(ins, ref):
+        torch.testing.assert_close(got.grad, exp.grad, rtol=0,
+                                   atol=1e-5 * float(exp.grad.abs().max()))
+    assert float(ins[1].grad.abs().max()) > 0
+
+
+def test_dcn_gather_kernel_refuses_what_it_does_not_take(dev):
+    x, offsets, weights = _dcn_problem(dev, 10, 1, 4, 5, 12, groups=4)
+    z = deform_conv.dcn_z(x, weights, 4)
+    with pytest.raises(ValueError):  # 10 fp32 channels: not 16-byte rows
+        deform_conv.dcn_gather_kernel(z[:, :, :10], offsets)
+    with pytest.raises(TypeError):
+        deform_conv.dcn_gather_kernel(z.half(), offsets)
+    with pytest.raises(ValueError):
+        deform_conv.dcn_gather_kernel(z, offsets.cpu())
+    with pytest.raises(ValueError):  # offsets of another map
+        deform_conv.dcn_gather_kernel(z, offsets[:, :3])
+
+
+@pytest.mark.parametrize("layout", [(1024, 128), (1024, 1), (1024,)])
+def test_take_rows_kernel_is_exact(dev, layout):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    feat = torch.randn(7680, 128, generator=gen, device=dev)
+    idx = torch.randint(0, 7680, layout, generator=gen, device=dev,
+                        dtype=torch.int32)
+    before = _build.launch_counts["take_rows"]
+    got = gather.take_along_rows(feat, idx)
+    assert _build.launch_counts["take_rows"] == before + 1
+    want = gather.take_along_rows(feat, idx, use_kernel=False)
+    assert torch.equal(got, want)
+
+
+def test_take_rows_kernel_clamps_a_bad_index(dev):
+    """The kernel reads the nearest row for an index outside [0, R), where
+    the plain route raises (ops/gather.py: take_along_rows)."""
+    feat = torch.randn(300, 128, device=dev)
+    idx = torch.tensor([-5, 0, 299, 300, 10**6], dtype=torch.int32,
+                       device=dev)
+    got = gather.take_along_rows(feat, idx)
+    want = gather.take_along_rows(feat, idx.clamp(0, 299), use_kernel=False)
+    assert torch.equal(got, want)

@@ -10,11 +10,14 @@ loss moves its gradient by about eps; moves far larger than eps mean kinks
 within reach of rounding, so two fp32 implementations of the same detector
 cannot agree leaf by leaf at 2%.
 
-Run from the repository root, on the CPU:
+Run from the repository root:
 
-    python tools/probe_torch_grad_kinks.py [--seed 7] [--eval]
+    python tools/probe_torch_grad_kinks.py [--seed 7] [--eval] [--device cpu]
 
 ``--eval`` puts BatchNorm on its running statistics (still with autograd).
+``--device`` (default ``cuda``, where the kernels run) picks where the
+detector is built and run. The finding recorded in PERF.md was made on the
+CPU: rerun it with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -74,14 +77,14 @@ def tiny_batch(rng: np.random.RandomState, b: int = 2) -> dict:
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def gradients(seed: int, eps: float, eval_bn: bool, batch) -> dict:
-    model = BEVDepthOccupancy(TINY, device="cpu")
+def gradients(seed: int, eps: float, eval_bn: bool, batch, device) -> dict:
+    model = BEVDepthOccupancy(TINY, device=device)
     seeded_init_(model, seed)
     noise = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for p in model.parameters():
-            p.mul_(1 + eps * torch.randn(p.shape, generator=noise))
-    state = train.create_train_state(model, device="cpu")
+            p.mul_(1 + eps * torch.randn(p.shape, generator=noise).to(device))
+    state = train.create_train_state(model, device=device)
     if eval_bn:
         for m in model.modules():
             if isinstance(m, layers.BatchNorm):
@@ -96,16 +99,18 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=7)
     parser.add_argument("--eval", action="store_true")
+    parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
+    dev = torch.device(args.device)
     rng = np.random.RandomState(5)
-    batch = tiny_batch(rng)
+    batch = {k: v.to(dev) for k, v in tiny_batch(rng).items()}
     shape = (2, sum(TINY.neck_out_channels)) + TINY.feature_size
-    mask = torch.from_numpy(rng.rand(*shape) < 0.5)
+    mask = torch.from_numpy(rng.rand(*shape) < 0.5).to(dev)
     layers.keep_mask = lambda *a: mask  # one fixed ASPP dropout mask
-    base = gradients(args.seed, 0.0, args.eval, batch)
+    base = gradients(args.seed, 0.0, args.eval, batch, dev)
     floor = 1e-4 * max(float(g.abs().max()) for g in base.values())
     for eps in (0.0, 1e-8, 1e-7, 1e-6):
-        moved = gradients(args.seed, eps, args.eval, batch)
+        moved = gradients(args.seed, eps, args.eval, batch, dev)
         rel = {n: float((moved[n] - g).abs().max())
                / max(float(g.abs().max()), floor) for n, g in base.items()}
         worst = max(rel, key=rel.get)
