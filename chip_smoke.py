@@ -13,10 +13,15 @@ Phases, one line each; any failure raises, so the script exits nonzero:
 2. K1 (fused GWC + depth warp) against its plain PyTorch version at the
    flagship shapes, fp32 and bf16, plus boundary positions; then its
    autograd Function's gradients against plain autograd (fp32, 1e-5);
+   its bf16 time as a share of its bound;
 3. K3 (fused lift + splat) and K2 (sorted splat) against their plain
    versions on the real group-8 splat plan of the flagship calibration;
+   K3 timed beside ``F.embedding_bag`` over the same plan (held to the
+   same tolerance), K2 beside ``index_add_``;
 4. K4 (implicit-GEMM conv3d) against its plain version at the three
    flagship shapes, fp32 (1e-4 of max|ref|) and bf16 (2e-2 of max|ref|);
+   per shape and per forward: bf16 kernel, plain and cuDNN ms, the bound,
+   the kernel's share of it and its TFLOP/s;
 4b. P1 (the DCN gather) at the flagship DepthNet DCN [1, 48, 160, 640],
    G = 4, with the Pallas probe's offsets (randn * 1.5) and the seeded
    offset head's: the kernel against its plain version (fp32 1e-5, bf16
@@ -87,9 +92,9 @@ K4_SHAPES = {"hourglass conv2": ((64, 56, 24, 80, 64), 4),
              "resnet3d stage 1": ((128, 64, 64, 8, 128), 4)}
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Median device time of ``fn`` over ``iters`` CUDA-event runs, after
-    one warm-up."""
+def cuda_ms(fn, iters: int = 20, reps: int = 1) -> float:
+    """Median device time of ``reps`` back-to-back calls of ``fn`` over
+    ``iters`` CUDA-event runs, after one warm-up."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -97,7 +102,8 @@ def cuda_ms(fn, iters: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -196,7 +202,8 @@ def phase_gwc(cfg, dev, gwc) -> dict:
     print(f"phase 2 K1 gwc_warp [1, {d}, {fh}, {fw}, 32]: max abs err fp32 "
           f"{err32:.3e} boundary {err_edge:.3e} bf16 {err16:.3e}; median of "
           f"20: bf16 kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-          f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}), fp32 kernel "
+          f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}; the kernel at "
+          f"{k1['bound_ms'] / ms:.1%} of it), fp32 kernel "
           f"{ms32:.4f} ms plain {plain_ms32:.4f} ms", flush=True)
 
     g = torch.randn(out.shape, generator=gen, device=dev)
@@ -210,6 +217,23 @@ def phase_gwc(cfg, dev, gwc) -> dict:
           f"dleft {errs[0]:.3e} dright {errs[1]:.3e} vs plain autograd",
           flush=True)
     return k1
+
+
+def splat_library(dp, feat, order, bounds, group):
+    """K3's function as one PyTorch call: ``F.embedding_bag`` in sum mode,
+    one bag per voxel (rows ``bounds[v] * group`` up to the next voxel's),
+    each plan row weighted by its depth probability (0 for pad rows); the
+    indices and weights are prepared outside the timed call. Timed, never
+    used by the port."""
+    p_total = dp.numel()
+    od = order.long()
+    odc = od.clamp(max=p_total - 1)
+    idx = odc % feat.shape[0]
+    weights = dp[odc] * (od < p_total)
+    offsets = bounds.long() * group
+    return lambda: torch.nn.functional.embedding_bag(
+        idx, feat, offsets, mode="sum", per_sample_weights=weights,
+        include_last_offset=True)
 
 
 def phase_splat(model, cpu_batch, dev, pool):
@@ -237,7 +261,11 @@ def phase_splat(model, cpu_batch, dev, pool):
     want = fused(False)
     scale = float(want.abs().max())
     err3 = check_close("splat fused", fused(True), want, 1e-4 * scale, 0.0)
+    library = splat_library(dp, feat, order, bounds, group)
+    err3_lib = check_close("splat fused embedding_bag", library(), want,
+                           1e-4 * scale, 0.0)
     ms3, plain3 = cuda_ms(lambda: fused(True)), cuda_ms(lambda: fused(False))
+    lib3 = cuda_ms(library)
 
     ranks = model.compute_ranks(cpu_batch)[0].numpy()
     order1, rs1 = splat_plan.build_plan(ranks, nvox, group=1)
@@ -258,7 +286,7 @@ def phase_splat(model, cpu_batch, dev, pool):
     acc = torch.zeros(nvox + 1, c, device=dev)
     lib2 = cuda_ms(lambda: acc.index_add_(0, overflow, vals))
     rows8 = int((ranks8 < nvox).sum())
-    k3 = dict(max_abs_err=err3, ms=ms3, plain_ms=plain3, library_ms=None,
+    k3 = dict(max_abs_err=err3, ms=ms3, plain_ms=plain3, library_ms=lib3,
               **bound(nbytes(dp, feat, order, bounds, want),
                       2 * len(order) * c, torch.float32))
     k2 = dict(max_abs_err=err2, ms=ms2, plain_ms=plain2, library_ms=lib2,
@@ -267,8 +295,9 @@ def phase_splat(model, cpu_batch, dev, pool):
     print(f"phase 3 K3 lift_splat_fused: group-{group} plan of "
           f"{len(order)} rows ({rows8} in voxels = {rows8 // group} groups, "
           f"{int((ranks < nvox).sum())} in-bounds points) -> [{nvox}, {c}]; "
-          f"max abs err {err3:.3e} (max|ref| {scale:.3e}); median of 20: "
-          f"kernel {ms3:.4f} ms plain {plain3:.4f} ms bound "
+          f"max abs err {err3:.3e} (max|ref| {scale:.3e}; embedding_bag "
+          f"{err3_lib:.3e}); median of 20: kernel {ms3:.4f} ms plain "
+          f"{plain3:.4f} ms embedding_bag {lib3:.4f} ms bound "
           f"{k3['bound_ms']:.4f} ms | K2 splat_sorted: group-1 plan of "
           f"{len(rs1)} rows; max abs err {err2:.3e}; kernel {ms2:.4f} ms "
           f"plain {plain2:.4f} ms index_add_ {lib2:.4f} ms bound "
@@ -280,7 +309,8 @@ def phase_conv3d(dev, conv3d) -> dict:
     """K4 at the flagship's three conv shapes, fp32 and bf16; times in
     bf16 (the training step's dtype) for the kernel on a channels-last
     input, its plain version and cuDNN's ``F.conv3d`` on channels-last
-    tensors. The kernels-line entry sums the 12 launches of a forward."""
+    tensors, each shape's four launches of a forward timed back to back.
+    The kernels-line entry sums the 12 launches of a forward."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
     worst, parts, moved, ops = 0.0, [], 0, 0
@@ -300,26 +330,39 @@ def phase_conv3d(dev, conv3d) -> dict:
         xp, wb = x.bfloat16(), wt.bfloat16()
         xb = xp.contiguous(memory_format=torch.channels_last_3d)
         wcl = wb.contiguous(memory_format=torch.channels_last_3d)
-        ms = cuda_ms(lambda: conv3d.conv3d_s1(xb, wb, use_kernel=True))
-        plain = cuda_ms(lambda: conv3d.conv3d_s1_plain(xp, wb))
-        lib = cuda_ms(lambda: torch.nn.functional.conv3d(xb, wcl, padding=1))
+        # a forward's `count` launches of the shape back to back, per launch
+        ms = cuda_ms(lambda: conv3d.conv3d_s1(xb, wb, use_kernel=True),
+                     reps=count) / count
+        plain = cuda_ms(lambda: conv3d.conv3d_s1_plain(xp, wb),
+                        reps=count) / count
+        lib = cuda_ms(lambda: torch.nn.functional.conv3d(xb, wcl, padding=1),
+                      reps=count) / count
         y = conv3d.conv3d_s1(xb, wb, use_kernel=True)
-        b = bound(nbytes(xb, wb, y), 2 * y.numel() * 27 * ci, torch.bfloat16)
+        flop = 2 * y.numel() * 27 * ci
+        b = bound(nbytes(xb, wb, y), flop, torch.bfloat16)
         for key, value in (("ms", ms), ("plain_ms", plain),
                            ("library_ms", lib)):
             total[key] += count * value
         moved += count * nbytes(xb, wb, y)
-        ops += count * 2 * y.numel() * 27 * ci
+        ops += count * flop
         worst = max(worst, *errs.values())
-        parts.append(f"{name} [{ci}->{co} at {d}x{h}x{w}] x{count}: max abs "
-                     f"err fp32 {errs[torch.float32]:.3e} bf16 "
-                     f"{errs[torch.bfloat16]:.3e}; bf16 kernel {ms:.4f} ms "
-                     f"plain {plain:.4f} ms cuDNN {lib:.4f} ms bound "
+        parts.append(f"{name} [{ci}->{co} at {d}x{h}x{w}, tile "
+                     f"{conv3d.BLOCK_M}x{conv3d.tile_n(co)}] "
+                     f"x{count}: max abs err fp32 {errs[torch.float32]:.3e} "
+                     f"bf16 {errs[torch.bfloat16]:.3e}; bf16 kernel {ms:.4f} "
+                     f"ms ({flop / ms / 1e9:.1f} TFLOP/s, "
+                     f"{b['bound_ms'] / ms:.1%} of the bound) plain "
+                     f"{plain:.4f} ms cuDNN {lib:.4f} ms "
+                     f"({flop / lib / 1e9:.1f} TFLOP/s) bound "
                      f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     total.update(bound(moved, ops, torch.bfloat16))
     print("phase 4 K4 conv3d_s1 (median of 20): " + " | ".join(parts)
           + f" | per forward ({ops / 1e9:.1f} GFLOP): kernel "
-          f"{total['ms']:.3f} ms, cuDNN {total['library_ms']:.3f} ms, bound "
+          f"{total['ms']:.3f} ms ({ops / total['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{total['bound_ms'] / total['ms']:.1%} of the bound, "
+          f"{total['ms'] / total['library_ms']:.2f}x cuDNN), cuDNN "
+          f"{total['library_ms']:.3f} ms "
+          f"({ops / total['library_ms'] / 1e9:.1f} TFLOP/s), plain {total['plain_ms']:.3f} ms, bound "
           f"{total['bound_ms']:.4f} ms ({total['bound_by']})", flush=True)
     return dict(max_abs_err=worst, **total)
 
@@ -839,7 +882,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load_kernels()
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln]
+             if "registers" in ln or "wgmma" in ln]
     nvcc = (f"nvcc {_build.build_seconds:.1f} s" if _build.build_seconds
             else "library already built from these sources")
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s ({nvcc}); "

@@ -40,15 +40,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry name -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    # left, right, i0, w0, w1, out, B, H, W, C, G, K, D, in_bf16, out_bf16,
+    # left, right, positions, out, B, H, W, C, G, K, D, in_bf16, out_bf16,
     # stream
-    "stereoscene_gwc_warp": [_P] * 6 + [_I] * 9 + [_P],
+    "stereoscene_gwc_warp": [_P] * 4 + [_I] * 9 + [_P],
     # dp, feat, order, bounds, out, num_voxels, C, group, P, HW, stream
     "stereoscene_splat_fused": [_P] * 5 + [_I] * 5 + [_P],
     # vals, bounds, out, num_voxels, C, stream
     "stereoscene_splat_sorted": [_P] * 3 + [_I] * 2 + [_P],
-    # x, w, y, B, D, H, W, Ci, Co, bf16, stream
-    "stereoscene_conv3d_s1": [_P] * 3 + [_I] * 7 + [_P],
+    # x, w, wk, y, B, D, H, W, Ci, Co, bf16, w_fp32, block_n, stream
+    "stereoscene_conv3d_s1": [_P] * 4 + [_I] * 9 + [_P],
     # z, offsets, out, N, C, H, W, kw, z_bf16, stream
     "stereoscene_dcn_gather": [_P] * 3 + [_I] * 6 + [_P],
     # feat, idx, out, M, C, R, idx_col_stride, stream
@@ -137,6 +137,8 @@ def check(code: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` (a CUDA tensor's device) as an
+    integer handle, without building a ``torch.cuda.Stream``."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

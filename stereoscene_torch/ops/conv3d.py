@@ -2,8 +2,9 @@
 
 Port of ``stereoscene_tpu/ops/pallas_conv3d.py`` (``conv3d_s1_pallas``):
 the forward is the hand-written implicit GEMM ``csrc/conv3d.cu`` on a CUDA
-tensor, ``conv3d_s1_plain`` on a CPU tensor; the backward is the JAX
-package's ``_bwd``: dx and dw of the plain conv in fp32, cast back.
+tensor (bf16 on the tensor cores, fp32 exact on the CUDA cores),
+``conv3d_s1_plain`` on a CPU tensor; the backward is the JAX package's
+``_bwd``: dx and dw of the plain conv in fp32, cast back.
 
 Tensors are torch's NCDHW. The kernel reads and writes channels-last memory
 (``torch.channels_last_3d``), so a volume that already lies so costs no
@@ -21,6 +22,23 @@ from ._dispatch import want_kernel
 
 # the channel counts the kernel takes (the JAX gate, models/layers.py:651)
 KERNEL_CIN = (64, 128)
+# the bf16 kernel's output voxels per block (csrc/conv3d.cu kTcBM)
+BLOCK_M = 128
+
+
+def tile_n(co: int) -> int:
+    """The bf16 kernel's N tile: 128 unless Co fits in 64 (the tile table in
+    csrc/conv3d.cu's header)."""
+    return 128 if co > 64 else 64
+
+
+def pack_weight_kmajor(weight: torch.Tensor) -> torch.Tensor:
+    """[Co, Ci, 3, 3, 3] -> [27, Co, Ci], taps in (kd, kh, kw) order: the
+    bf16 kernel's B operand, K (the channels) contiguous per output
+    channel. The kernel packs its own copy on the card; this is the plain
+    statement of that layout."""
+    co, ci = weight.shape[:2]
+    return weight.permute(2, 3, 4, 0, 1).reshape(27, co, ci).contiguous()
 
 
 def conv3d_s1_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -44,16 +62,27 @@ def conv3d_s1_kernel(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda or weight.device != x.device:
         raise ValueError("conv3d kernel: x and weight must be on one card")
     xc = x.contiguous(memory_format=torch.channels_last_3d)
-    # [Co, Ci, kd, kh, kw] -> [(kd kh kw), Ci, Co]: pallas_conv3d.py:97-100
-    wp = weight.to(x.dtype).permute(2, 3, 4, 1, 0).reshape(27, ci, co)
-    wp = wp.contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:  # the kernel packs the weights K-major into wk, once per call
+        wp = weight.contiguous()
+        if wp.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"conv3d kernel: weight {wp.dtype}")
+        wk = torch.empty((27, co, ci), dtype=torch.bfloat16, device=x.device)
+        block_n = tile_n(co)
+        if xc.data_ptr() % 16:
+            raise ValueError("conv3d kernel: bf16 x must be 16-byte aligned")
+    else:  # [Co, Ci, kd, kh, kw] -> [(kd kh kw), Ci, Co], pallas_conv3d.py:97
+        wp = weight.to(x.dtype).permute(2, 3, 4, 1, 0).reshape(27, ci, co)
+        wp = wp.contiguous()
+        wk, block_n = wp, 0
     out = torch.empty((b, co, d, h, w), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last_3d)
     lib = _build.load_kernels()
     with torch.cuda.device(x.device):  # launch on the tensors' card
         _build.check(lib.stereoscene_conv3d_s1(
-            xc.data_ptr(), wp.data_ptr(), out.data_ptr(), b, d, h, w, ci, co,
-            int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device),
+            xc.data_ptr(), wp.data_ptr(), wk.data_ptr(), out.data_ptr(), b,
+            d, h, w, ci, co, int(bf16), int(wp.dtype == torch.float32),
+            block_n, _build.stream_ptr(x.device),
         ), "stereoscene_conv3d_s1")
     _build.launch_counts["conv3d_s1"] += 1
     return out
@@ -92,4 +121,6 @@ def conv3d_s1(x: torch.Tensor, weight: torch.Tensor,
     kernel = want_kernel("conv3d_s1", use_kernel, x, weight,
                          differentiable=True)
     impl = conv3d_s1_kernel if kernel else conv3d_s1_plain
-    return Conv3dS1.apply(x, weight, impl)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return Conv3dS1.apply(x, weight, impl)
+    return impl(x, weight)  # nothing to differentiate: no autograd node

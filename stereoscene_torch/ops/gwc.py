@@ -74,7 +74,10 @@ def gwc_warp_plain(left, right, positions, max_disp, num_groups,
 
 def gwc_warp_kernel(left, right, positions, max_disp, num_groups,
                     out_dtype) -> torch.Tensor:
-    """Launch ``csrc/gwc_warp.cu`` (K1) on CUDA tensors or raise."""
+    """Launch ``csrc/gwc_warp.cu`` (K1) on CUDA tensors or raise. The
+    kernel derives the warp's lerp coefficients from ``positions`` itself
+    (``warp_coeffs``' arithmetic), so this launches only the kernel and
+    allocates only its output."""
     b, h, w, c = left.shape
     if right.shape != left.shape or right.dtype != left.dtype:
         raise ValueError(
@@ -87,18 +90,20 @@ def gwc_warp_kernel(left, right, positions, max_disp, num_groups,
         raise TypeError(
             f"gwc_warp kernel takes fp32/bf16, got {left.dtype} -> "
             f"{out_dtype}")
+    if positions.dim() != 2 or positions.shape[0] != b:
+        raise ValueError(f"positions {tuple(positions.shape)} are not "
+                         f"[{b}, K]")
     num_out = positions.shape[1]
-    i0, w0, w1 = warp_coeffs(positions, max_disp)
     left, right = left.contiguous(), right.contiguous()
-    i0, w0, w1 = i0.contiguous(), w0.contiguous(), w1.contiguous()
+    positions = positions.float().contiguous()
     out = torch.empty((b, num_out, h, w, num_groups), dtype=out_dtype,
                       device=left.device)
     lib = _build.load_kernels()
     with torch.cuda.device(left.device):  # launch on the tensors' card
         _build.check(lib.stereoscene_gwc_warp(
-            left.data_ptr(), right.data_ptr(), i0.data_ptr(), w0.data_ptr(),
-            w1.data_ptr(), out.data_ptr(), b, h, w, c, num_groups, num_out,
-            max_disp, int(left.dtype == torch.bfloat16),
+            left.data_ptr(), right.data_ptr(), positions.data_ptr(),
+            out.data_ptr(), b, h, w, c, num_groups, num_out, max_disp,
+            int(left.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), _build.stream_ptr(left.device),
         ), "stereoscene_gwc_warp")
     _build.launch_counts["gwc_warp"] += 1
@@ -151,5 +156,9 @@ def fused_gwc_warp(
     kernel = want_kernel("fused_gwc_warp", use_kernel, left, right,
                          positions, differentiable=True)
     impl = gwc_warp_kernel if kernel else gwc_warp_plain
-    return GwcWarp.apply(left, right, positions, max_disp, num_groups,
-                         out_dtype, impl)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (left, right, positions)):
+        return GwcWarp.apply(left, right, positions, max_disp, num_groups,
+                             out_dtype, impl)
+    # nothing to differentiate: no autograd node
+    return impl(left, right, positions, max_disp, num_groups, out_dtype)

@@ -50,6 +50,55 @@ def test_plain_matches_pallas_interpret(shape):
                                rtol=1e-5, atol=1e-5)
 
 
+def _gemm_walk(x, wk, block_k=64):
+    """The bf16 kernel's arithmetic in plain fp32: for each of the 27 taps
+    and each 64-channel slice, the shifted input rows (zero in the halo)
+    times that slice of the K-major weights [27, Co, Ci], summed into
+    [B, D, H, W, Co]."""
+    b, ci, d, h, w = x.shape
+    co = wk.shape[1]
+    xp = torch.nn.functional.pad(x.permute(0, 2, 3, 4, 1),
+                                 (0, 0, 1, 1, 1, 1, 1, 1))
+    acc = torch.zeros(b * d * h * w, co)
+    for tap in range(27):
+        kd, kh, kw = tap // 9, tap // 3 % 3, tap % 3
+        rows = xp[:, kd:kd + d, kh:kh + h, kw:kw + w].reshape(-1, ci)
+        for c0 in range(0, ci, block_k):
+            acc += rows[:, c0:c0 + block_k] @ wk[tap, :, c0:c0 + block_k].T
+    return acc.view(b, d, h, w, co)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 3, 4, 7, 64),
+                                   (2, 128, 2, 3, 5, 72),
+                                   (2, 64, 2, 5, 9, 72),
+                                   (2, 128, 3, 2, 7, 64)])
+def test_packed_gemm_walk_matches_pallas_interpret(shape):
+    """The weights packed for the tensor cores, walked tap by tap and
+    slice by slice as the kernel walks them: Ci 64 / 128, Co 64 / 72, odd
+    W, B = 2."""
+    x, wt = _problem(3, *shape)
+    want = np.asarray(jconv.conv3d_s1_pallas(jnp.asarray(x), jnp.asarray(wt),
+                                             True))
+    xt, wtt = _torch_args(x, wt)
+    wk = conv3d.pack_weight_kmajor(wtt)
+    assert wk.shape == (27, shape[-1], shape[1]) and wk.is_contiguous()
+    np.testing.assert_allclose(_gemm_walk(xt, wk).numpy(), want, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("args,block_n,blocks", [
+    ((1, 56 * 24 * 80, 64), 64, 840),     # hourglass conv2
+    ((1, 28 * 12 * 40, 128), 128, 105),   # hourglass conv4
+    ((1, 64 * 64 * 8, 128), 128, 256),    # ResNet3D stage 1
+    ((2, 5 * 6 * 7, 72), 128, 4)])
+def test_tile_n(args, block_n, blocks):
+    """The N tile the bf16 kernel gets per shape, and its grid."""
+    batch, voxels, co = args
+    assert conv3d.tile_n(co) == block_n
+    grid = batch * -(-voxels // conv3d.BLOCK_M) * -(-co // block_n)
+    assert grid == blocks
+
+
 def test_backward_matches_jax_vjp():
     """The Function's backward with the plain forward against jax.grad
     through conv3d_s1_pallas's custom VJP."""

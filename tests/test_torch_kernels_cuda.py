@@ -7,7 +7,9 @@ elsewhere. This file imports no JAX, so on a machine without it run
 
 Tolerances: fp32 1e-5 (the kernels sum in fp32, in another order than the
 plain versions), bf16 output 2e-2 (one bf16 rounding), splats and conv3d
-1e-4 of the output's scale (fp32 sums over up to 27 * 128 terms), the DCN
+1e-4 of the output's scale (fp32 sums over up to 27 * 128 terms), bf16
+conv3d 2e-2 of the output's scale (bf16 products summed in fp32 on the
+tensor cores and in cuDNN, then one bf16 rounding each), the DCN
 gather 1e-5 (fp32) and 2e-2 (bf16) of the output's scale, the row gather
 exact. The plain conv3d runs with TF32 off, so both sides are fp32.
 """
@@ -81,6 +83,42 @@ def test_gwc_kernel_bf16_output(dev, in_dtype):
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+def _positions_per_sample(dev, b, k, d):
+    """Sample 0: the flagship warp's positions for a calibration;
+    sample 1 on: the boundary values -1.5, -0.4, 0, D-1, D, then seeded
+    fractional values in [-1.5, D + 0.5]."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    rows = [disparity_positions(torch.full((1,), 60.0, device=dev), k)[0]]
+    edge = torch.tensor([-1.5, -0.4, 0.0, d - 1.0, float(d)], device=dev)
+    for _ in range(b - 1):
+        rest = torch.rand(k - len(edge), generator=gen, device=dev)
+        rows.append(torch.cat([edge, rest * (d + 2.0) - 1.5]))
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("shape", [(2, 3, 45, 64, 70, 24, 32),
+                                   (2, 2, 70, 16, 20, 16, 8),
+                                   (2, 2, 33, 32, 19, 12, 8)])
+def test_gwc_kernel_tiles_and_dtypes(dev, shape, in_dtype, out_dtype):
+    """W off the 32-column tile, K off the 56-depth chunk, B = 2 with
+    different positions per sample (boundary values in sample 1), all
+    four dtype pairs; cpg 2 takes the 8-groups-per-thread path, cpg 4
+    the generic one."""
+    b, h, w, c, k, d, g = shape
+    left, right = _features(dev, 8, b, h, w, c, in_dtype)
+    pos = _positions_per_sample(dev, b, k, d)
+    got = gwc.fused_gwc_warp(left, right, pos, d, g, out_dtype=out_dtype)
+    want = gwc.fused_gwc_warp(left, right, pos, d, g, out_dtype=out_dtype,
+                              use_kernel=False)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (b, k, h, w, g)
+    tol = 1e-5 if out_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 def test_gwc_kernel_refuses_what_it_does_not_take(dev):
@@ -179,6 +217,52 @@ def test_conv3d_kernel_matches_plain(dev, dtype, shape):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=tol * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (1, 64, 3, 5, 7, 64), (1, 128, 5, 9, 11, 64), (2, 64, 4, 6, 5, 72),
+    (2, 128, 1, 1, 1, 64), (1, 64, 2, 3, 1, 72)])
+def test_conv3d_kernel_edges(dev, dtype, shape):
+    """M off the 128-row block (105, 495 voxels), Co = 72, B = 2, and
+    volumes where every tap but the centre falls in the halo (1x1x1,
+    2x3x1)."""
+    x, wt = _volume(dev, 9, shape, dtype)
+    got = conv3d.conv3d_s1(x, wt)
+    want = conv3d.conv3d_s1_plain(x, wt)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("block_n", [64, 128])
+@pytest.mark.parametrize("shape", [(2, 128, 3, 4, 13, 72),
+                                   (1, 64, 6, 5, 9, 128)])
+def test_conv3d_bf16_both_tiles(dev, monkeypatch, shape, block_n):
+    """Each N tile of the tensor-core route, whatever the wrapper would
+    pick for Co; Co = 72 leaves most of a 128 tile empty."""
+    monkeypatch.setattr(conv3d, "tile_n", lambda co: block_n)
+    x, wt = _volume(dev, 10, shape, torch.bfloat16)
+    got = conv3d.conv3d_s1(x, wt)
+    want = conv3d.conv3d_s1_plain(x, wt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2e-2 * float(want.float().abs().max()))
+
+
+def test_conv3d_bf16_layouts_and_repeats(dev):
+    """A non-channels-last input gives the output of its channels-last
+    copy, and two bf16 launches on the same input are bitwise equal."""
+    x, wt = _volume(dev, 11, (1, 128, 28, 12, 40, 128), torch.bfloat16)
+    assert not x.is_contiguous(memory_format=torch.channels_last_3d)
+    first = conv3d.conv3d_s1(x, wt)
+    xcl = x.contiguous(memory_format=torch.channels_last_3d)
+    second = conv3d.conv3d_s1(xcl, wt)
+    third = conv3d.conv3d_s1(xcl, wt)
+    torch.cuda.synchronize()
+    assert first.is_contiguous(memory_format=torch.channels_last_3d)
+    assert torch.equal(first, second) and torch.equal(second, third)
 
 
 def test_conv3d_kernel_refuses_what_it_does_not_take(dev):
