@@ -15,9 +15,16 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    autograd Function's gradients against plain autograd (fp32, 1e-5);
    its bf16 time as a share of its bound;
 3. K3 (fused lift + splat) and K2 (sorted splat) against their plain
-   versions on the real group-8 splat plan of the flagship calibration;
-   K3 timed beside ``F.embedding_bag`` over the same plan (held to the
-   same tolerance), K2 beside ``index_add_``;
+   versions on the real group-8 splat plan of the flagship calibration
+   (1e-4 of max|ref|), two launches of each bitwise equal; the chunk
+   size, the number of chunks, of voxels across chunks and of their
+   partial sums, the longest voxel; K3 timed beside ``F.embedding_bag``
+   over the same plan (held to the same tolerance), K2 beside
+   ``index_add_``, each as a share of its bound; K3 with bf16 tables
+   (serving's dtype: the kernels-line entry; held to the plain version
+   and to the kernel on their fp32 copies) and fp32 tables; K3's
+   gathered feature bytes (L2 traffic) and their rate at the kernel's
+   time;
 4. K4 (implicit-GEMM conv3d) against its plain version at the three
    flagship shapes, fp32 (1e-4 of max|ref|) and bf16 (2e-2 of max|ref|);
    per shape and per forward: bf16 kernel, plain and cuDNN ms, the bound,
@@ -254,17 +261,34 @@ def phase_splat(model, cpu_batch, dev, pool):
     feat = torch.randn(fh * fw, c, generator=gen, device=dev)
     group = cfg.splat_group
 
-    def fused(use_kernel):
-        return pool.lift_splat_fused(dp, feat, order, bounds, group, nvox,
+    def fused(use_kernel, tables=(dp, feat)):
+        return pool.lift_splat_fused(*tables, order, bounds, group, nvox,
                                      use_kernel=use_kernel)
 
     want = fused(False)
     scale = float(want.abs().max())
-    err3 = check_close("splat fused", fused(True), want, 1e-4 * scale, 0.0)
-    library = splat_library(dp, feat, order, bounds, group)
-    err3_lib = check_close("splat fused embedding_bag", library(), want,
-                           1e-4 * scale, 0.0)
-    ms3, plain3 = cuda_ms(lambda: fused(True)), cuda_ms(lambda: fused(False))
+    got = fused(True)
+    err3 = check_close("splat fused", got, want, 1e-4 * scale, 0.0)
+    if not torch.equal(got, fused(True)):
+        raise AssertionError("splat fused: two launches differ")
+    # serving's dtype: bf16 tables, widened exactly in the kernel
+    t16 = (dp.bfloat16(), feat.bfloat16())
+    got16 = fused(True, t16)
+    want16 = fused(False, t16)
+    err3_16 = check_close("splat fused bf16", got16, want16,
+                          1e-4 * float(want16.abs().max()), 0.0)
+    if not torch.equal(got16, fused(True, t16)):
+        raise AssertionError("splat fused bf16: two launches differ")
+    # the same sums over their fp32 copies, in another order
+    err3_16c = check_close("splat fused bf16 vs fp32 copies", got16,
+                           fused(True, tuple(t.float() for t in t16)),
+                           1e-4 * float(want16.abs().max()), 0.0)
+    library = splat_library(*(t.float() for t in t16), order, bounds, group)
+    err3_lib = check_close("splat fused embedding_bag", library(), want16,
+                           1e-4 * float(want16.abs().max()), 0.0)
+    ms3, plain3 = (cuda_ms(lambda: fused(True, t16)),
+                   cuda_ms(lambda: fused(False, t16)))
+    ms3_32 = cuda_ms(lambda: fused(True))
     lib3 = cuda_ms(library)
 
     ranks = model.compute_ranks(cpu_batch)[0].numpy()
@@ -278,30 +302,57 @@ def phase_splat(model, cpu_batch, dev, pool):
         return pool.splat_sorted(vals, rs1_d, nvox, use_kernel=use_kernel)
 
     want2 = sorted_(False)
-    err2 = check_close("splat sorted", sorted_(True), want2,
+    got2 = sorted_(True)
+    err2 = check_close("splat sorted", got2, want2,
                        1e-4 * float(want2.abs().max()), 0.0)
+    if not torch.equal(got2, sorted_(True)):
+        raise AssertionError("splat sorted: two launches differ")
     ms2, plain2 = cuda_ms(lambda: sorted_(True)), cuda_ms(
         lambda: sorted_(False))
     overflow = rs1_d.long().clamp(max=nvox)  # pad rows -> a dropped bucket
     acc = torch.zeros(nvox + 1, c, device=dev)
     lib2 = cuda_ms(lambda: acc.index_add_(0, overflow, vals))
     rows8 = int((ranks8 < nvox).sum())
-    k3 = dict(max_abs_err=err3, ms=ms3, plain_ms=plain3, library_ms=lib3,
-              **bound(nbytes(dp, feat, order, bounds, want),
-                      2 * len(order) * c, torch.float32))
+    part3 = pool.chunk_partition(planned["splat_bounds"][0].numpy(), group,
+                                 len(order))
+    part2 = pool.chunk_partition(splat_plan.plan_bounds(rs1, nvox), 1,
+                                 len(rs1))
+    # K3's live rows: each gathers a feature row from the L2-resident bf16
+    # table and takes C multiply-adds
+    live = int((order < dp.numel()).sum())
+    gathered = live * nbytes(t16[1][0])
+    k3 = dict(max_abs_err=max(err3, err3_16), ms=ms3, plain_ms=plain3,
+              library_ms=lib3,
+              **bound(nbytes(*t16, order, bounds, want16), 2 * live * c,
+                      torch.float32))
     k2 = dict(max_abs_err=err2, ms=ms2, plain_ms=plain2, library_ms=lib2,
               **bound(nbytes(vals, rs1_d, want2), vals.numel(),
                       torch.float32))
+
+    def chunks(part):
+        return (f"chunks of {part['chunk_rows']} rows: {part['n_chunks']}, "
+                f"{int(part['crossing'].sum())} voxels across chunks with "
+                f"{part['n_partials']} partials, {int(part['empty'].sum())} "
+                f"empty, longest voxel {part['longest']} rows")
+
     print(f"phase 3 K3 lift_splat_fused: group-{group} plan of "
           f"{len(order)} rows ({rows8} in voxels = {rows8 // group} groups, "
           f"{int((ranks < nvox).sum())} in-bounds points) -> [{nvox}, {c}]; "
-          f"max abs err {err3:.3e} (max|ref| {scale:.3e}; embedding_bag "
-          f"{err3_lib:.3e}); median of 20: kernel {ms3:.4f} ms plain "
-          f"{plain3:.4f} ms embedding_bag {lib3:.4f} ms bound "
-          f"{k3['bound_ms']:.4f} ms | K2 splat_sorted: group-1 plan of "
-          f"{len(rs1)} rows; max abs err {err2:.3e}; kernel {ms2:.4f} ms "
-          f"plain {plain2:.4f} ms index_add_ {lib2:.4f} ms bound "
-          f"{k2['bound_ms']:.4f} ms", flush=True)
+          f"{chunks(part3)}; max abs err fp32 {err3:.3e} (max|ref| "
+          f"{scale:.3e}) bf16 tables {err3_16:.3e} (vs the kernel on their "
+          f"fp32 copies {err3_16c:.3e}, embedding_bag {err3_lib:.3e}); two "
+          f"launches bitwise equal; median of 20, bf16 tables: kernel "
+          f"{ms3:.4f} ms plain {plain3:.4f} ms embedding_bag (fp32 copies) "
+          f"{lib3:.4f} ms bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}, "
+          f"the kernel at {k3['bound_ms'] / ms3:.1%} of it); fp32 tables: "
+          f"kernel {ms3_32:.4f} ms; L2 gather {gathered / 1e6:.1f} MB of "
+          f"bf16 feature rows from a {nbytes(t16[1]) / 1e6:.2f} MB table, "
+          f"{gathered / ms3 / 1e9:.2f} TB/s at the kernel's time | K2 "
+          f"splat_sorted: group-1 plan of {len(rs1)} rows; {chunks(part2)}; "
+          f"max abs err {err2:.3e}; two launches bitwise equal; kernel "
+          f"{ms2:.4f} ms plain {plain2:.4f} ms index_add_ {lib2:.4f} ms "
+          f"bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}, the kernel at "
+          f"{k2['bound_ms'] / ms2:.1%} of it)", flush=True)
     return k3, k2
 
 

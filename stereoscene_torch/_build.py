@@ -43,10 +43,12 @@ SIGNATURES = {
     # left, right, positions, out, B, H, W, C, G, K, D, in_bf16, out_bf16,
     # stream
     "stereoscene_gwc_warp": [_P] * 4 + [_I] * 9 + [_P],
-    # dp, feat, order, bounds, out, num_voxels, C, group, P, HW, stream
-    "stereoscene_splat_fused": [_P] * 5 + [_I] * 5 + [_P],
-    # vals, bounds, out, num_voxels, C, stream
-    "stereoscene_splat_sorted": [_P] * 3 + [_I] * 2 + [_P],
+    # dp, feat, order, bounds, partials, out, num_voxels, C, group, P, HW,
+    # rows, chunk_rows, bf16, stream
+    "stereoscene_splat_fused": [_P] * 6 + [_I] * 8 + [_P],
+    # vals, ranks, bounds, partials, out, num_voxels, C, rows, chunk_rows,
+    # stream
+    "stereoscene_splat_sorted": [_P] * 5 + [_I] * 4 + [_P],
     # x, w, wk, y, B, D, H, W, Ci, Co, bf16, w_fp32, block_n, stream
     "stereoscene_conv3d_s1": [_P] * 4 + [_I] * 9 + [_P],
     # z, offsets, out, N, C, H, W, kw, z_bf16, stream

@@ -57,13 +57,14 @@ class ViewTransformerLiftSplatShootVoxel(nn.Module):
         img_feat = dn[:, d:d + self.numC_Trans]
         fused_prob = self.volume_interaction(stereo["single_channel"],
                                              lss_prob)
-        feat = img_feat.permute(0, 2, 3, 1).float()
+        feat = img_feat.permute(0, 2, 3, 1)
         if isinstance(plan, torch.Tensor):
-            bev = lift_splat(fused_prob.float(), feat, plan, self.grid_shape)
-        else:
+            bev = lift_splat(fused_prob.float(), feat.float(), plan,
+                             self.grid_shape)
+        else:  # K3 takes bf16 tables and widens them exactly
             order, ranks_sorted, bounds = plan
             bev = lift_splat_static(
-                fused_prob.float(), feat, order, ranks_sorted,
+                fused_prob, feat, order, ranks_sorted,
                 self.grid_shape, group=self.splat_group, bounds=bounds,
                 use_kernel=use_kernel)
         # [B, X, Y, Z, C] -> [B, C, X, Y, Z] (a channels-last-3d view)

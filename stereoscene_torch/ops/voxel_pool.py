@@ -9,8 +9,13 @@ with two entry points:
   splat of the main path;
 - ``splat_sorted``: a segment sum of pre-lifted rank-sorted rows (K2).
 
-Plans come from ``ops/splat_plan.py``. The kernels are forward-only and
-serve inference. Training splats with the dynamic-rank ``lift_splat``
+Plans come from ``ops/splat_plan.py``. The kernel balances its work over
+plan rows, not voxels: each warp sums a chunk of ``CHUNK_ROWS`` consecutive
+rows, writes the voxels that lie wholly inside it and leaves one partial sum
+for each voxel that crosses the chunk's edge; a second launch adds those in
+chunk order and zeroes the empty voxels. ``chunk_partition`` describes that
+split for a plan. The kernels are forward-only and serve inference.
+Training splats with the dynamic-rank ``lift_splat``
 (``voxel_pool.py:89-103, 230-265`` of the JAX package): an ``index_add``
 into an overflow bucket at ``num_voxels`` that is then dropped, which is
 what the JAX package leaves to XLA, not a Pallas kernel.
@@ -18,12 +23,42 @@ what the JAX package leaves to XLA, not a Pallas kernel.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
 from ._dispatch import want_kernel
+
+# Plan rows per warp of csrc/splat.cu; the flagship's longest voxel (1,360
+# rows) spans 22 or 23 chunks. 64 and 128 ran alike on an H100
+# (tools/probe_torch_splat.py).
+CHUNK_ROWS = 64
+
+
+def chunk_partition(bounds, group: int, rows: int,
+                    chunk_rows: "int | None" = None) -> Dict:
+    """How csrc/splat.cu splits a plan: bounds [num_voxels + 1] (voxel v
+    owns rows [bounds[v]*group, bounds[v+1]*group)), ``rows`` plan rows in
+    chunks of ``chunk_rows`` (default ``CHUNK_ROWS``). Per voxel: its
+    ``first`` and ``last`` chunk, ``direct`` (its chunk writes it),
+    ``crossing`` (the fix-up adds its partials, the tail slot of ``first``
+    then the head slots of ``first + 1 .. last``) and ``empty`` (the fix-up
+    writes zeros); and ``n_chunks``, ``n_partials`` and ``longest`` (rows
+    of the longest voxel)."""
+    chunk_rows = CHUNK_ROWS if chunk_rows is None else chunk_rows
+    b = np.asarray(bounds, np.int64) * group
+    begin, end = b[:-1], b[1:]
+    empty = end <= begin
+    first = begin // chunk_rows
+    last = np.where(empty, first, (end - 1) // chunk_rows)
+    crossing = ~empty & (last > first)
+    return dict(first=first, last=last, empty=empty,
+                direct=~empty & ~crossing, crossing=crossing,
+                n_chunks=-(-rows // chunk_rows), chunk_rows=chunk_rows,
+                n_partials=int((last - first + 1)[crossing].sum()),
+                longest=int((end - begin).max(initial=0)))
 
 
 def _segment_sum(vals: torch.Tensor, bounds: torch.Tensor,
@@ -61,10 +96,12 @@ def lift_splat_fused(
     """One sample's fused lift + splat -> [num_voxels, C] fp32.
 
     dp: [D*fH*fW] depth probabilities; feat: [fH*fW, C] context features
-    (both fp32); order: [P_pad] int32 plan order; bounds: [num_voxels + 1]
-    int32 group-row boundaries (``splat_plan.plan_bounds``). On a CUDA
-    tensor this launches ``csrc/splat.cu`` (stereoscene_splat_fused) or
-    raises; on a CPU tensor it runs ``lift_splat_fused_plain``."""
+    (both fp32 or both bf16; the sums are fp32 either way, bf16 values
+    widened exactly); order: [P_pad] int32 plan order; bounds:
+    [num_voxels + 1] int32 group-row boundaries (``splat_plan.plan_bounds``).
+    On a CUDA tensor this launches ``csrc/splat.cu``
+    (stereoscene_splat_fused) or raises; on a CPU tensor it runs
+    ``lift_splat_fused_plain``."""
     if not want_kernel("lift_splat_fused", use_kernel, dp, feat, order,
                        bounds):
         return lift_splat_fused_plain(dp, feat, order, bounds, group,
@@ -72,7 +109,7 @@ def lift_splat_fused(
     hw, c = feat.shape
     p_total = dp.numel()
     _check_kernel_inputs("lift_splat_fused", dp, feat, order, bounds,
-                         num_voxels)
+                         num_voxels, (torch.float32, torch.bfloat16))
     if p_total % hw:
         raise ValueError(f"dp of {p_total} is not a multiple of {hw} pixels")
     if order.numel() % group:
@@ -80,13 +117,17 @@ def lift_splat_fused(
                          f"group {group}")
     dp, feat = dp.contiguous(), feat.contiguous()
     order, bounds = order.contiguous(), bounds.contiguous()
+    rows = _int32_rows("lift_splat_fused", order.numel())
     out = torch.empty((num_voxels, c), dtype=torch.float32, device=dp.device)
+    partials = torch.empty((-(-rows // CHUNK_ROWS), 2, c),
+                           dtype=torch.float32, device=dp.device)
     lib = _build.load_kernels()
     with torch.cuda.device(dp.device):  # launch on the tensors' card
         _build.check(lib.stereoscene_splat_fused(
             dp.data_ptr(), feat.data_ptr(), order.data_ptr(),
-            bounds.data_ptr(), out.data_ptr(), num_voxels, c, group, p_total,
-            hw, _build.stream_ptr(dp.device),
+            bounds.data_ptr(), partials.data_ptr(), out.data_ptr(),
+            num_voxels, c, group, p_total, hw, rows, CHUNK_ROWS,
+            int(dp.dtype == torch.bfloat16), _build.stream_ptr(dp.device),
         ), "stereoscene_splat_fused")
     _build.launch_counts["lift_splat_fused"] += 1
     return out
@@ -109,42 +150,56 @@ def splat_sorted(
 ) -> torch.Tensor:
     """Segment sum of rank-sorted rows [P, C] fp32 into [num_voxels, C].
 
-    Pad rows carry ranks >= num_voxels. The row boundaries come from
-    ``torch.searchsorted`` over the sorted ranks. On a CUDA tensor this
-    launches ``csrc/splat.cu`` (stereoscene_splat_sorted) or raises."""
+    Pad rows carry ranks >= num_voxels. The kernel finds the row
+    boundaries itself (``torch.searchsorted`` over the sorted ranks, left
+    side). On a CUDA tensor this launches ``csrc/splat.cu``
+    (stereoscene_splat_sorted) or raises."""
     if not want_kernel("splat_sorted", use_kernel, vals, ranks_sorted):
         return splat_sorted_plain(vals, ranks_sorted, num_voxels)
     if ranks_sorted.dtype != torch.int32:
         raise TypeError(f"ranks must be int32, got {ranks_sorted.dtype}")
-    bounds = torch.searchsorted(
-        ranks_sorted,
-        torch.arange(num_voxels + 1, device=vals.device, dtype=torch.int32),
-        out_int32=True)
-    _check_kernel_inputs("splat_sorted", vals, vals, ranks_sorted, bounds,
+    _check_kernel_inputs("splat_sorted", vals, vals, ranks_sorted, None,
                          num_voxels)
     if vals.shape[0] != ranks_sorted.shape[0]:
         raise ValueError("vals and ranks_sorted differ in rows")
-    vals = vals.contiguous()
-    out = torch.empty((num_voxels, vals.shape[1]), dtype=torch.float32,
+    vals, ranks_sorted = vals.contiguous(), ranks_sorted.contiguous()
+    rows = _int32_rows("splat_sorted", vals.shape[0])
+    c = vals.shape[1]
+    out = torch.empty((num_voxels, c), dtype=torch.float32,
                       device=vals.device)
+    partials = torch.empty((-(-rows // CHUNK_ROWS), 2, c),
+                           dtype=torch.float32, device=vals.device)
+    bounds = torch.empty(num_voxels + 1, dtype=torch.int32,
+                         device=vals.device)
     lib = _build.load_kernels()
     with torch.cuda.device(vals.device):  # launch on the tensors' card
         _build.check(lib.stereoscene_splat_sorted(
-            vals.data_ptr(), bounds.data_ptr(), out.data_ptr(), num_voxels,
-            vals.shape[1], _build.stream_ptr(vals.device),
+            vals.data_ptr(), ranks_sorted.data_ptr(), bounds.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), num_voxels, c, rows,
+            CHUNK_ROWS, _build.stream_ptr(vals.device),
         ), "stereoscene_splat_sorted")
     _build.launch_counts["splat_sorted"] += 1
     return out
 
 
-def _check_kernel_inputs(name, table, feat, order, bounds, num_voxels):
-    if table.dtype != torch.float32 or feat.dtype != torch.float32:
-        raise TypeError(f"{name}: the splat kernel takes fp32 values")
-    if order.dtype != torch.int32 or bounds.dtype != torch.int32:
+def _int32_rows(name, rows: int) -> int:
+    if rows >= 2**31:
+        raise ValueError(f"{name}: {rows} plan rows do not fit int32")
+    return rows
+
+
+def _check_kernel_inputs(name, table, feat, order, bounds, num_voxels,
+                         dtypes=(torch.float32,)):
+    if table.dtype != feat.dtype or table.dtype not in dtypes:
+        raise TypeError(f"{name}: the splat kernel takes values of one "
+                        f"dtype in {dtypes}, got {table.dtype} and "
+                        f"{feat.dtype}")
+    if order.dtype != torch.int32 or (bounds is not None
+                                      and bounds.dtype != torch.int32):
         raise TypeError(f"{name}: plan arrays must be int32")
     if feat.dim() != 2 or order.dim() != 1:
         raise ValueError(f"{name}: expected 2D values and a 1D plan")
-    if bounds.shape != (num_voxels + 1,):
+    if bounds is not None and bounds.shape != (num_voxels + 1,):
         raise ValueError(
             f"{name}: bounds {tuple(bounds.shape)} != ({num_voxels + 1},)")
 
@@ -161,9 +216,11 @@ def lift_splat_static(
 ) -> torch.Tensor:
     """Fused lift + splat over a host-built static plan.
 
-    depth_prob: [B, D, fH, fW]; img_feat: [B, fH, fW, C]; order /
-    ranks_sorted: [B, P_pad] int32; bounds: [B, num_voxels + 1] int32 (from
-    ``ranks_sorted`` when None). Returns [B, X, Y, Z, C] fp32."""
+    depth_prob: [B, D, fH, fW]; img_feat: [B, fH, fW, C], both fp32 or
+    both bf16 (the kernel widens bf16 itself, the plain version casts);
+    order / ranks_sorted: [B, P_pad] int32; bounds: [B, num_voxels + 1]
+    int32 (from ``ranks_sorted`` when None). Returns [B, X, Y, Z, C]
+    fp32."""
     num_x, num_y, num_z = grid_shape
     num_voxels = num_x * num_y * num_z
     b, c = depth_prob.shape[0], img_feat.shape[-1]
@@ -176,8 +233,7 @@ def lift_splat_static(
             for i in range(b)])
     return torch.stack([
         lift_splat_fused(
-            depth_prob[i].float().reshape(-1),
-            img_feat[i].float().reshape(-1, c),
+            depth_prob[i].reshape(-1), img_feat[i].reshape(-1, c),
             order[i], bounds[i], group, num_voxels, use_kernel,
         ).view(num_x, num_y, num_z, c)
         for i in range(b)])

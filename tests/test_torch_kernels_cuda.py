@@ -175,6 +175,124 @@ def test_splat_sorted_kernel_matches_plain(dev):
                                atol=1e-4 * float(want.abs().max()))
 
 
+SPLAT_PLANS = ["long", "one voxel", "none", "last voxel", "random"]
+
+
+def _adversarial_plan(kind, group, nvox=512, p=1536):
+    """Plans that stress the chunked splat: a 1,360-row voxel (the
+    flagship's longest), all rows in one voxel, no live row, only the last
+    voxel, and a random ~40% in-bounds plan."""
+    rng = np.random.RandomState(11)
+    if kind == "long":
+        ranks = np.where(rng.rand(p) < 0.3, rng.randint(0, nvox, p), nvox)
+        ranks[rng.permutation(p)[:1360]] = 7
+    elif kind == "one voxel":
+        ranks = np.full(p, 300)
+    elif kind == "none":
+        ranks = np.full(p, nvox)
+    elif kind == "last voxel":
+        ranks = np.where(rng.rand(p) < 0.5, nvox - 1, nvox)
+    else:
+        ranks = np.where(rng.rand(p) < 0.4, rng.randint(0, nvox, p), nvox)
+        ranks[:20] = 7
+    order, rs = splat_plan.build_plan(ranks.astype(np.int32), nvox,
+                                      group=group)
+    return order, rs, splat_plan.plan_bounds(rs, nvox, group)
+
+
+def _check_splat(got, again, want):
+    """Within 1e-4 of max|ref| of the plain version, and two launches
+    bitwise equal (the kernel has no atomics)."""
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("chunk_rows", [32, 64, 128])
+@pytest.mark.parametrize("c", [128, 96, 40, 37])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("kind", SPLAT_PLANS)
+def test_splat_fused_kernel_chunks(dev, monkeypatch, kind, group, c,
+                                   chunk_rows):
+    """K3 on plans whose voxels span many chunks (1,360 rows: 43 chunks of
+    32, 11 of 128), chunks that begin and end inside one voxel, empty
+    plans; C = 37 takes the scalar-load path."""
+    monkeypatch.setattr(voxel_pool, "CHUNK_ROWS", chunk_rows)
+    order, rs, bounds = _adversarial_plan(kind, group)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    dp = torch.rand(1536, generator=gen, device=dev)
+    feat = torch.randn(8 * 24, c, generator=gen, device=dev)
+    order = torch.from_numpy(order).to(dev)
+    bounds = torch.from_numpy(bounds).to(dev)
+
+    def run(use_kernel=None):
+        return voxel_pool.lift_splat_fused(dp, feat, order, bounds, group,
+                                           512, use_kernel=use_kernel)
+
+    got, again, want = run(), run(), run(False)
+    _check_splat(got, again, want)
+    if kind == "none":
+        assert not got.any()
+
+
+def test_splat_fused_kernel_unaligned_table(dev):
+    """A feature table 4 bytes off a 16-byte boundary takes the scalar
+    loads and agrees all the same."""
+    order, rs, bounds = _adversarial_plan("random", 8)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    dp = torch.rand(1536, generator=gen, device=dev)
+    feat = torch.randn(192 * 128 + 1, generator=gen, device=dev)[1:]
+    feat = feat.view(192, 128)
+    assert feat.data_ptr() % 16
+    order = torch.from_numpy(order).to(dev)
+    bounds = torch.from_numpy(bounds).to(dev)
+    got = voxel_pool.lift_splat_fused(dp, feat, order, bounds, 8, 512)
+    again = voxel_pool.lift_splat_fused(dp, feat, order, bounds, 8, 512)
+    want = voxel_pool.lift_splat_fused(dp, feat, order, bounds, 8, 512,
+                                       use_kernel=False)
+    _check_splat(got, again, want)
+
+
+@pytest.mark.parametrize("c", [128, 40, 37])
+@pytest.mark.parametrize("kind", SPLAT_PLANS)
+def test_splat_fused_kernel_bf16_tables(dev, kind, c):
+    """bf16 dp and feat (serving's dtype): the kernel widens them to fp32
+    and sums them as it sums their fp32 copies, in another order (a
+    half-warp per row of a pair), so within the same 1e-4 of max|ref|."""
+    order, rs, bounds = _adversarial_plan(kind, 8)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    dp = torch.rand(1536, generator=gen, device=dev).bfloat16()
+    feat = torch.randn(192, c, generator=gen, device=dev).bfloat16()
+    order = torch.from_numpy(order).to(dev)
+    bounds = torch.from_numpy(bounds).to(dev)
+    got = voxel_pool.lift_splat_fused(dp, feat, order, bounds, 8, 512)
+    again = voxel_pool.lift_splat_fused(dp, feat, order, bounds, 8, 512)
+    want = voxel_pool.lift_splat_fused(dp, feat, order, bounds, 8, 512,
+                                       use_kernel=False)
+    _check_splat(got, again, want)
+    assert got.dtype == torch.float32
+    _check_splat(got, again, voxel_pool.lift_splat_fused(
+        dp.float(), feat.float(), order, bounds, 8, 512))
+
+
+@pytest.mark.parametrize("chunk_rows", [32, 64, 128])
+@pytest.mark.parametrize("c", [128, 96, 40])
+@pytest.mark.parametrize("kind", SPLAT_PLANS)
+def test_splat_sorted_kernel_chunks(dev, monkeypatch, kind, c, chunk_rows):
+    """K2 on the same plans; its pad rows carry nonzero values, which the
+    kernel must leave out."""
+    monkeypatch.setattr(voxel_pool, "CHUNK_ROWS", chunk_rows)
+    _, rs, _ = _adversarial_plan(kind, 1)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    vals = torch.randn(len(rs), c, generator=gen, device=dev)
+    rs = torch.from_numpy(rs).to(dev)
+    got = voxel_pool.splat_sorted(vals, rs, 512)
+    again = voxel_pool.splat_sorted(vals, rs, 512)
+    want = voxel_pool.splat_sorted(vals, rs, 512, use_kernel=False)
+    _check_splat(got, again, want)
+
+
 def test_gwc_backward_matches_plain(dev):
     """The K1 Function's grads against autograd through the plain pair;
     positions get a zero grad."""

@@ -1,4 +1,5 @@
-"""Time K1 and K4 of a ``stereoscene_torch`` tree, and its bf16 train step.
+"""Time K1, K2, K3 and K4 of a ``stereoscene_torch`` tree, one bf16 serving
+request and its bf16 train step.
 
 Compares two versions of the port on one card: run it once per tree, in
 turns (old, new, new, old), inside one command:
@@ -16,6 +17,18 @@ imported, whichever tree this script lives in. Prints one JSON line:
   three conv shapes (channels-last input), each shape's four launches
   timed back to back, median of 20;
   ``k4_cudnn_ms`` the same for cuDNN's channels-last ``F.conv3d``;
+- ``k3_ms``: K3 at the flagship calibration's group-8 plan (547,840 rows,
+  860,160 depth weights, feat [7680, 128] fp32), the whole
+  ``lift_splat_fused`` call, median of 20; ``k3_bf16_ms`` the same with
+  bf16 tables (null where the tree's K3 takes fp32 only);
+  ``k3_embedding_bag_ms`` the same function as one ``F.embedding_bag``
+  call (chip_smoke.py phase 3);
+- ``k2_ms``: K2 on the lifted rows of the group-1 plan (456,704 rows of
+  128 fp32), the whole ``splat_sorted`` call, median of 20;
+  ``k2_index_add_ms`` ``index_add_`` into an overflow bucket;
+- ``serve_ms``: host ms of a bf16 serving request of ``DetectorConfig()``
+  through ``BEVDepthOccupancy.infer`` (chip_smoke.py phase 6's recipe),
+  median over ``--requests`` after one warm-up, and its samples;
 - ``step_ms``: bf16 train steps of ``DetectorConfig()`` built with
   ``conv3d_kernel=True`` (host wall clock per step; the first step, cuDNN's
   set-up, is left out of the median), and their losses.
@@ -56,11 +69,86 @@ def cuda_ms(fn, iters: int = 20, reps: int = 1) -> float:
     return statistics.median(times)
 
 
+def splat_inputs(chip_smoke, splat_plan, model_cls, cfg_cls, dev) -> dict:
+    """Phase 3's inputs: the flagship calibration's group-8 plan with
+    seeded dp / feat tables (K3), and the lifted rows of its group-1 plan
+    (K2). The plan depends on the geometry only, not on the weights."""
+    import numpy as np
+
+    cfg = cfg_cls(backbone_with_cp=False)
+    model = model_cls(cfg)
+    batch = chip_smoke.flagship_batch(cfg, 0, "cpu")
+    planned = model.attach_plan(batch)
+    ranks = model.compute_ranks(batch)[0].numpy()
+    del model
+    nvox = int(np.prod(cfg.grid_shape))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    fh, fw = cfg.feature_size
+    dp = torch.softmax(torch.randn(cfg.num_depth, fh * fw, generator=gen,
+                                   device=dev), 0).reshape(-1)
+    feat = torch.randn(fh * fw, cfg.numC_Trans, generator=gen, device=dev)
+    order1, rs1 = splat_plan.build_plan(ranks, nvox, group=1)
+    o1 = torch.from_numpy(order1).to(dev).long()
+    rs1 = torch.from_numpy(rs1).to(dev)
+    vals = (dp[o1][:, None] * feat[o1 % (fh * fw)]
+            * (rs1 < nvox).float()[:, None])
+    return dict(dp=dp, feat=feat, order=planned["splat_order"][0].to(dev),
+                bounds=planned["splat_bounds"][0].to(dev),
+                group=cfg.splat_group, nvox=nvox, vals=vals, ranks1=rs1)
+
+
+def bench_splats(chip_smoke, voxel_pool, x) -> dict:
+    """K3 and K2 on phase 3's inputs ``x`` (``splat_inputs``), beside
+    their library calls; K3 with bf16 tables where the tree takes them."""
+    def k3(dp, feat):
+        return voxel_pool.lift_splat_fused(dp, feat, x["order"], x["bounds"],
+                                           x["group"], x["nvox"],
+                                           use_kernel=True)
+
+    out = {"k3_ms": cuda_ms(lambda: k3(x["dp"], x["feat"]))}
+    dp16, feat16 = x["dp"].bfloat16(), x["feat"].bfloat16()
+    try:
+        out["k3_bf16_ms"] = cuda_ms(lambda: k3(dp16, feat16))
+    except TypeError:  # a tree whose K3 takes fp32 tables only
+        out["k3_bf16_ms"] = None
+    out["k3_embedding_bag_ms"] = cuda_ms(chip_smoke.splat_library(
+        x["dp"], x["feat"], x["order"], x["bounds"], x["group"]))
+    out["k2_ms"] = cuda_ms(lambda: voxel_pool.splat_sorted(
+        x["vals"], x["ranks1"], x["nvox"], use_kernel=True))
+    overflow = x["ranks1"].long().clamp(max=x["nvox"])
+    acc = torch.zeros(x["nvox"] + 1, x["vals"].shape[1], device=x["dp"].device)
+    out["k2_index_add_ms"] = cuda_ms(
+        lambda: acc.index_add_(0, overflow, x["vals"]))
+    return out
+
+
+def bench_serving(chip_smoke, model_cls, cfg_cls, seeded_init_, dev,
+                  requests: int):
+    """Host ms per bf16 request (one warm-up, then ``requests``)."""
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = cfg_cls(backbone_with_cp=False)
+    model = model_cls(cfg)
+    seeded_init_(model, 0)
+    model.to(torch.bfloat16)
+    times = []
+    for i in range(requests + 1):
+        batch = chip_smoke.flagship_batch(cfg, 10 + i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.infer(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    del model
+    torch.cuda.empty_cache()
+    return statistics.median(times[1:]), times
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", required=True)
     parser.add_argument("--label", default=None)
     parser.add_argument("--steps", type=int, default=6)
+    parser.add_argument("--requests", type=int, default=5)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("bench_torch_kernels.py needs a CUDA device")
@@ -75,7 +163,7 @@ def main() -> None:
         BEVDepthOccupancy,
         DetectorConfig,
     )
-    from stereoscene_torch.ops import conv3d, gwc
+    from stereoscene_torch.ops import conv3d, gwc, splat_plan, voxel_pool
     from stereoscene_torch.utils.weights import seeded_init_
 
     if not stereoscene_torch.__file__.startswith(tree):
@@ -115,6 +203,12 @@ def main() -> None:
         cudnn += lib
     del x, wt, wcl
 
+    splat = bench_splats(chip_smoke, voxel_pool, splat_inputs(
+        chip_smoke, splat_plan, BEVDepthOccupancy, DetectorConfig, dev))
+    serve, serve_samples = bench_serving(chip_smoke, BEVDepthOccupancy,
+                                         DetectorConfig, seeded_init_, dev,
+                                         args.requests)
+
     torch.backends.cudnn.allow_tf32 = True
     cfg = DetectorConfig()
     batch = chip_smoke.train_batch(cfg, 20, dev)
@@ -133,6 +227,7 @@ def main() -> None:
     print(json.dumps({
         "label": args.label or tree, "card": card, "k1_ms": k1,
         "k4_ms": k4, "k4_shape_ms": per_shape, "k4_cudnn_ms": cudnn,
+        **splat, "serve_ms": serve, "serve_samples_ms": serve_samples,
         "step_ms": statistics.median(times[1:]), "step_samples_ms": times,
         "losses": losses}), flush=True)
 
