@@ -20,11 +20,11 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    size, the number of chunks, of voxels across chunks and of their
    partial sums, the longest voxel; K3 timed beside ``F.embedding_bag``
    over the same plan (held to the same tolerance), K2 beside
-   ``index_add_``, each as a share of its bound; K3 with bf16 tables
-   (serving's dtype: the kernels-line entry; held to the plain version
-   and to the kernel on their fp32 copies) and fp32 tables; K3's
-   gathered feature bytes (L2 traffic) and their rate at the kernel's
-   time;
+   ``index_add_``, each as a share of its bound; K3 with fp32 tables
+   (eval's dtype: the kernels-line entry, as in earlier PRs) and bf16
+   tables (serving's dtype; held to the plain version and to the kernel
+   on their fp32 copies); K3's gathered feature bytes (L2 traffic) and
+   their rate at the kernel's time, for each;
 4. K4 (implicit-GEMM conv3d) against its plain version at the three
    flagship shapes, fp32 (1e-4 of max|ref|) and bf16 (2e-2 of max|ref|);
    per shape and per forward: bf16 kernel, plain and cuDNN ms, the bound,
@@ -243,23 +243,64 @@ def splat_library(dp, feat, order, bounds, group):
         include_last_offset=True)
 
 
-def phase_splat(model, cpu_batch, dev, pool):
-    """K3 and K2 on the flagship calibration's real plans."""
+def chunk_partition(bounds, group: int, rows: int, chunk_rows: int) -> dict:
+    """How csrc/splat.cu splits a plan: bounds [num_voxels + 1] (voxel v
+    owns rows [bounds[v]*group, bounds[v+1]*group)), ``rows`` plan rows in
+    chunks of ``chunk_rows``. Per voxel: its ``first`` and ``last`` chunk,
+    ``direct`` (its chunk writes it), ``crossing`` (the fix-up adds its
+    partials, the tail slot of ``first`` then the head slots of
+    ``first + 1 .. last``) and ``empty`` (the fix-up writes zeros); and
+    ``n_chunks``, ``n_partials`` and ``longest`` (rows of the longest
+    voxel)."""
+    b = np.asarray(bounds, np.int64) * group
+    begin, end = b[:-1], b[1:]
+    empty = end <= begin
+    first = begin // chunk_rows
+    last = np.where(empty, first, (end - 1) // chunk_rows)
+    crossing = ~empty & (last > first)
+    return dict(first=first, last=last, empty=empty,
+                direct=~empty & ~crossing, crossing=crossing,
+                n_chunks=-(-rows // chunk_rows), chunk_rows=chunk_rows,
+                n_partials=int((last - first + 1)[crossing].sum()),
+                longest=int((end - begin).max(initial=0)))
+
+
+def splat_inputs(model, cpu_batch, dev) -> dict:
+    """Phase 3's inputs: the flagship calibration's group-8 plan (``order``,
+    ``bounds``) with seeded fp32 tables ``dp`` [D*fH*fW] and ``feat``
+    [fH*fW, C] for K3; for K2 the lifted rows ``vals`` of the group-1 plan
+    of the same points, their sorted ranks ``ranks1`` and bounds
+    ``bounds1``. The plans depend on the geometry only, not on the
+    weights."""
     from stereoscene_torch.ops import splat_plan
 
     cfg = model.cfg
     nvox = int(np.prod(cfg.grid_shape))
     planned = model.attach_plan(cpu_batch)
-    order = planned["splat_order"][0].to(dev)
-    ranks8 = planned["splat_ranks"][0]
-    bounds = planned["splat_bounds"][0].to(dev)
+    points = model.compute_ranks(cpu_batch)[0].numpy()
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     fh, fw = cfg.feature_size
-    d, c = cfg.num_depth, cfg.numC_Trans
-    dp = torch.softmax(torch.randn(d, fh * fw, generator=gen, device=dev),
-                       0).reshape(-1)
-    feat = torch.randn(fh * fw, c, generator=gen, device=dev)
-    group = cfg.splat_group
+    dp = torch.softmax(torch.randn(cfg.num_depth, fh * fw, generator=gen,
+                                   device=dev), 0).reshape(-1)
+    feat = torch.randn(fh * fw, cfg.numC_Trans, generator=gen, device=dev)
+    order1, rs1 = splat_plan.build_plan(points, nvox, group=1)
+    o1 = torch.from_numpy(order1).to(dev).long()
+    ranks1 = torch.from_numpy(rs1).to(dev)
+    vals = (dp[o1][:, None] * feat[o1 % (fh * fw)]
+            * (ranks1 < nvox).float()[:, None])
+    return dict(dp=dp, feat=feat, group=cfg.splat_group, nvox=nvox,
+                order=planned["splat_order"][0].to(dev),
+                bounds=planned["splat_bounds"][0].to(dev),
+                ranks8=planned["splat_ranks"][0], points=points, vals=vals,
+                ranks1=ranks1, bounds1=splat_plan.plan_bounds(rs1, nvox))
+
+
+def phase_splat(model, cpu_batch, dev, pool):
+    """K3 and K2 on the flagship calibration's real plans."""
+    x = splat_inputs(model, cpu_batch, dev)
+    dp, feat, order, bounds = x["dp"], x["feat"], x["order"], x["bounds"]
+    group, nvox, c = x["group"], x["nvox"], feat.shape[1]
+    points = x["points"]
 
     def fused(use_kernel, tables=(dp, feat)):
         return pool.lift_splat_fused(*tables, order, bounds, group, nvox,
@@ -271,6 +312,9 @@ def phase_splat(model, cpu_batch, dev, pool):
     err3 = check_close("splat fused", got, want, 1e-4 * scale, 0.0)
     if not torch.equal(got, fused(True)):
         raise AssertionError("splat fused: two launches differ")
+    library = splat_library(dp, feat, order, bounds, group)
+    err3_lib = check_close("splat fused embedding_bag", library(), want,
+                           1e-4 * scale, 0.0)
     # serving's dtype: bf16 tables, widened exactly in the kernel
     t16 = (dp.bfloat16(), feat.bfloat16())
     got16 = fused(True, t16)
@@ -283,23 +327,16 @@ def phase_splat(model, cpu_batch, dev, pool):
     err3_16c = check_close("splat fused bf16 vs fp32 copies", got16,
                            fused(True, tuple(t.float() for t in t16)),
                            1e-4 * float(want16.abs().max()), 0.0)
-    library = splat_library(*(t.float() for t in t16), order, bounds, group)
-    err3_lib = check_close("splat fused embedding_bag", library(), want16,
-                           1e-4 * float(want16.abs().max()), 0.0)
-    ms3, plain3 = (cuda_ms(lambda: fused(True, t16)),
-                   cuda_ms(lambda: fused(False, t16)))
-    ms3_32 = cuda_ms(lambda: fused(True))
+    # fp32 tables (eval's dtype) make the kernels-line entry, as in
+    # earlier PRs; bf16 tables are timed beside them
+    ms3, plain3 = cuda_ms(lambda: fused(True)), cuda_ms(lambda: fused(False))
+    ms3_16 = cuda_ms(lambda: fused(True, t16))
     lib3 = cuda_ms(library)
 
-    ranks = model.compute_ranks(cpu_batch)[0].numpy()
-    order1, rs1 = splat_plan.build_plan(ranks, nvox, group=1)
-    o1 = torch.from_numpy(order1).to(dev).long()
-    rs1_d = torch.from_numpy(rs1).to(dev)
-    live = (rs1_d < nvox).float()[:, None]
-    vals = dp[o1][:, None] * feat[o1 % (fh * fw)] * live
+    vals, ranks1 = x["vals"], x["ranks1"]
 
     def sorted_(use_kernel):
-        return pool.splat_sorted(vals, rs1_d, nvox, use_kernel=use_kernel)
+        return pool.splat_sorted(vals, ranks1, nvox, use_kernel=use_kernel)
 
     want2 = sorted_(False)
     got2 = sorted_(True)
@@ -309,24 +346,22 @@ def phase_splat(model, cpu_batch, dev, pool):
         raise AssertionError("splat sorted: two launches differ")
     ms2, plain2 = cuda_ms(lambda: sorted_(True)), cuda_ms(
         lambda: sorted_(False))
-    overflow = rs1_d.long().clamp(max=nvox)  # pad rows -> a dropped bucket
+    overflow = ranks1.long().clamp(max=nvox)  # pad rows -> a dropped bucket
     acc = torch.zeros(nvox + 1, c, device=dev)
     lib2 = cuda_ms(lambda: acc.index_add_(0, overflow, vals))
-    rows8 = int((ranks8 < nvox).sum())
-    part3 = pool.chunk_partition(planned["splat_bounds"][0].numpy(), group,
-                                 len(order))
-    part2 = pool.chunk_partition(splat_plan.plan_bounds(rs1, nvox), 1,
-                                 len(rs1))
-    # K3's live rows: each gathers a feature row from the L2-resident bf16
+    rows8 = int((x["ranks8"] < nvox).sum())
+    part3 = chunk_partition(x["bounds"].cpu().numpy(), group, len(order),
+                            pool.CHUNK_ROWS)
+    part2 = chunk_partition(x["bounds1"], 1, len(ranks1), pool.CHUNK_ROWS)
+    # K3's live rows: each gathers a feature row from the L2-resident
     # table and takes C multiply-adds
     live = int((order < dp.numel()).sum())
-    gathered = live * nbytes(t16[1][0])
-    k3 = dict(max_abs_err=max(err3, err3_16), ms=ms3, plain_ms=plain3,
-              library_ms=lib3,
-              **bound(nbytes(*t16, order, bounds, want16), 2 * live * c,
+    gathered, gathered16 = live * nbytes(feat[0]), live * nbytes(t16[1][0])
+    k3 = dict(max_abs_err=err3, ms=ms3, plain_ms=plain3, library_ms=lib3,
+              **bound(nbytes(dp, feat, order, bounds, want), 2 * live * c,
                       torch.float32))
     k2 = dict(max_abs_err=err2, ms=ms2, plain_ms=plain2, library_ms=lib2,
-              **bound(nbytes(vals, rs1_d, want2), vals.numel(),
+              **bound(nbytes(vals, ranks1, want2), vals.numel(),
                       torch.float32))
 
     def chunks(part):
@@ -337,21 +372,23 @@ def phase_splat(model, cpu_batch, dev, pool):
 
     print(f"phase 3 K3 lift_splat_fused: group-{group} plan of "
           f"{len(order)} rows ({rows8} in voxels = {rows8 // group} groups, "
-          f"{int((ranks < nvox).sum())} in-bounds points) -> [{nvox}, {c}]; "
-          f"{chunks(part3)}; max abs err fp32 {err3:.3e} (max|ref| "
-          f"{scale:.3e}) bf16 tables {err3_16:.3e} (vs the kernel on their "
-          f"fp32 copies {err3_16c:.3e}, embedding_bag {err3_lib:.3e}); two "
-          f"launches bitwise equal; median of 20, bf16 tables: kernel "
-          f"{ms3:.4f} ms plain {plain3:.4f} ms embedding_bag (fp32 copies) "
-          f"{lib3:.4f} ms bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}, "
-          f"the kernel at {k3['bound_ms'] / ms3:.1%} of it); fp32 tables: "
-          f"kernel {ms3_32:.4f} ms; L2 gather {gathered / 1e6:.1f} MB of "
-          f"bf16 feature rows from a {nbytes(t16[1]) / 1e6:.2f} MB table, "
-          f"{gathered / ms3 / 1e9:.2f} TB/s at the kernel's time | K2 "
-          f"splat_sorted: group-1 plan of {len(rs1)} rows; {chunks(part2)}; "
-          f"max abs err {err2:.3e}; two launches bitwise equal; kernel "
-          f"{ms2:.4f} ms plain {plain2:.4f} ms index_add_ {lib2:.4f} ms "
-          f"bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}, the kernel at "
+          f"{int((points < nvox).sum())} in-bounds points) -> [{nvox}, {c}]; "
+          f"{chunks(part3)}; max abs err {err3:.3e} (max|ref| {scale:.3e}; "
+          f"embedding_bag {err3_lib:.3e}); two launches bitwise equal; "
+          f"median of 20, fp32 tables: kernel {ms3:.4f} ms plain "
+          f"{plain3:.4f} ms embedding_bag {lib3:.4f} ms bound "
+          f"{k3['bound_ms']:.4f} ms ({k3['bound_by']}, the kernel at "
+          f"{k3['bound_ms'] / ms3:.1%} of it); L2 gather {gathered / 1e6:.1f} "
+          f"MB of feature rows from a {nbytes(feat) / 1e6:.2f} MB table, "
+          f"{gathered / ms3 / 1e9:.2f} TB/s at the kernel's time; bf16 "
+          f"tables (serving's dtype): max abs err {err3_16:.3e} (vs the "
+          f"kernel on their fp32 copies {err3_16c:.3e}), bitwise equal "
+          f"twice, kernel {ms3_16:.4f} ms, L2 gather {gathered16 / 1e6:.1f} "
+          f"MB, {gathered16 / ms3_16 / 1e9:.2f} TB/s | K2 splat_sorted: "
+          f"group-1 plan of {len(ranks1)} rows; {chunks(part2)}; max abs err "
+          f"{err2:.3e}; two launches bitwise equal; kernel {ms2:.4f} ms "
+          f"plain {plain2:.4f} ms index_add_ {lib2:.4f} ms bound "
+          f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}, the kernel at "
           f"{k2['bound_ms'] / ms2:.1%} of it)", flush=True)
     return k3, k2
 
@@ -738,8 +775,10 @@ def phase_fp32_forward(model, batch, build) -> None:
           flush=True)
 
 
-def phase_serve(model, cfg, dev, build, card: str) -> dict:
-    """bf16 serving: one warm-up request, then N_REQUESTS timed ones."""
+def phase_serve(model, cfg, dev, build, card: str,
+                requests: int = N_REQUESTS) -> tuple:
+    """bf16 serving: one warm-up request, then ``requests`` timed ones.
+    Returns the kernels' launches and the host ms of the timed requests."""
     torch.backends.cudnn.allow_tf32 = True
     model.to(torch.bfloat16)
     marks = {}
@@ -760,7 +799,7 @@ def phase_serve(model, cfg, dev, build, card: str) -> dict:
             lambda _m, _i, out: finite.append(torch.isfinite(out).all())),
     ]
     batches = [flagship_batch(cfg, SEED + 10 + i, dev)
-               for i in range(N_REQUESTS + 1)]
+               for i in range(requests + 1)]
     stages, frames = [], []
     build.launch_counts.clear()
     for i, batch in enumerate(batches):
@@ -792,7 +831,7 @@ def phase_serve(model, cfg, dev, build, card: str) -> dict:
             f"serving: {model.plan_cache.misses} plans built for one "
             "calibration")
     med = [statistics.median(s[j] for s in stages) for j in range(3)]
-    print(f"phase 6 bf16 serving on {card}: {N_REQUESTS} requests (+1 "
+    print(f"phase 6 bf16 serving on {card}: {requests} requests (+1 "
           f"warm-up) {cfg.input_size[0]}x{cfg.input_size[1]} stereo -> "
           f"[256, 256, 32] class maps in "
           f"[0, {cfg.out_channel}); median device ms images {med[0]:.3f} "
@@ -801,7 +840,7 @@ def phase_serve(model, cfg, dev, build, card: str) -> dict:
           f"(samples {', '.join(f'{f:.3f}' for f in frames)}); plan cache "
           f"hits {model.plan_cache.hits} misses {model.plan_cache.misses}; "
           f"launches {launches}", flush=True)
-    return launches
+    return launches, frames
 
 
 def train_batch(cfg, seed: int, dev) -> dict:
@@ -951,7 +990,7 @@ def main() -> None:
     p2 = phase_take_rows(dev, gather)
 
     phase_fp32_forward(model, flagship_batch(cfg, SEED, dev), _build)
-    serving = phase_serve(model, cfg, dev, _build, card)
+    serving, _ = phase_serve(model, cfg, dev, _build, card)
     del model
     torch.cuda.empty_cache()
 

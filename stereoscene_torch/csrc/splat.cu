@@ -58,15 +58,9 @@
 
 namespace {
 
-// 16-byte loads in flight per lane (divides 16); tools/probe_torch_splat.py
-// times variants built with -DSPLAT_UNROLL=n (4 and 8 ran alike).
-#ifndef SPLAT_UNROLL
-#define SPLAT_UNROLL 4
-#endif
-
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = SPLAT_UNROLL;
+constexpr int kUnroll = 4;   // 16-byte loads in flight per lane (divides 16)
 constexpr int kPass = 128;   // channels per warp pass
 constexpr unsigned kFull = 0xffffffffu;
 

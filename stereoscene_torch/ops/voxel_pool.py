@@ -13,9 +13,9 @@ Plans come from ``ops/splat_plan.py``. The kernel balances its work over
 plan rows, not voxels: each warp sums a chunk of ``CHUNK_ROWS`` consecutive
 rows, writes the voxels that lie wholly inside it and leaves one partial sum
 for each voxel that crosses the chunk's edge; a second launch adds those in
-chunk order and zeroes the empty voxels. ``chunk_partition`` describes that
-split for a plan. The kernels are forward-only and serve inference.
-Training splats with the dynamic-rank ``lift_splat``
+chunk order and zeroes the empty voxels (``chip_smoke.chunk_partition``
+describes that split for a plan). The kernels are forward-only and serve
+inference. Training splats with the dynamic-rank ``lift_splat``
 (``voxel_pool.py:89-103, 230-265`` of the JAX package): an ``index_add``
 into an overflow bucket at ``num_voxels`` that is then dropped, which is
 what the JAX package leaves to XLA, not a Pallas kernel.
@@ -23,42 +23,17 @@ what the JAX package leaves to XLA, not a Pallas kernel.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
-import numpy as np
 import torch
 
 from .. import _build
 from ._dispatch import want_kernel
 
 # Plan rows per warp of csrc/splat.cu; the flagship's longest voxel (1,360
-# rows) spans 22 or 23 chunks. 64 and 128 ran alike on an H100
+# rows) spans 22 or 23 chunks. 64 ran faster than 128 on an H100
 # (tools/probe_torch_splat.py).
 CHUNK_ROWS = 64
-
-
-def chunk_partition(bounds, group: int, rows: int,
-                    chunk_rows: "int | None" = None) -> Dict:
-    """How csrc/splat.cu splits a plan: bounds [num_voxels + 1] (voxel v
-    owns rows [bounds[v]*group, bounds[v+1]*group)), ``rows`` plan rows in
-    chunks of ``chunk_rows`` (default ``CHUNK_ROWS``). Per voxel: its
-    ``first`` and ``last`` chunk, ``direct`` (its chunk writes it),
-    ``crossing`` (the fix-up adds its partials, the tail slot of ``first``
-    then the head slots of ``first + 1 .. last``) and ``empty`` (the fix-up
-    writes zeros); and ``n_chunks``, ``n_partials`` and ``longest`` (rows
-    of the longest voxel)."""
-    chunk_rows = CHUNK_ROWS if chunk_rows is None else chunk_rows
-    b = np.asarray(bounds, np.int64) * group
-    begin, end = b[:-1], b[1:]
-    empty = end <= begin
-    first = begin // chunk_rows
-    last = np.where(empty, first, (end - 1) // chunk_rows)
-    crossing = ~empty & (last > first)
-    return dict(first=first, last=last, empty=empty,
-                direct=~empty & ~crossing, crossing=crossing,
-                n_chunks=-(-rows // chunk_rows), chunk_rows=chunk_rows,
-                n_partials=int((last - first + 1)[crossing].sum()),
-                longest=int((end - begin).max(initial=0)))
 
 
 def _segment_sum(vals: torch.Tensor, bounds: torch.Tensor,

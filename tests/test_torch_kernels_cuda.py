@@ -254,26 +254,36 @@ def test_splat_fused_kernel_unaligned_table(dev):
     _check_splat(got, again, want)
 
 
+@pytest.mark.parametrize("chunk_rows", [32, 64, 128])
 @pytest.mark.parametrize("c", [128, 40, 37])
+@pytest.mark.parametrize("group", [1, 8])
 @pytest.mark.parametrize("kind", SPLAT_PLANS)
-def test_splat_fused_kernel_bf16_tables(dev, kind, c):
+def test_splat_fused_kernel_bf16_tables(dev, monkeypatch, kind, group, c,
+                                        chunk_rows):
     """bf16 dp and feat (serving's dtype): the kernel widens them to fp32
     and sums them as it sums their fp32 copies, in another order (a
-    half-warp per row of a pair), so within the same 1e-4 of max|ref|."""
-    order, rs, bounds = _adversarial_plan(kind, 8)
+    half-warp per row of a pair), so within the same 1e-4 of max|ref|.
+    Group 1 puts voxel boundaries on odd rows, between the two rows of a
+    pair."""
+    monkeypatch.setattr(voxel_pool, "CHUNK_ROWS", chunk_rows)
+    order, rs, bounds = _adversarial_plan(kind, group)
     gen = torch.Generator(device=dev).manual_seed(15)
     dp = torch.rand(1536, generator=gen, device=dev).bfloat16()
     feat = torch.randn(192, c, generator=gen, device=dev).bfloat16()
     order = torch.from_numpy(order).to(dev)
     bounds = torch.from_numpy(bounds).to(dev)
-    got = voxel_pool.lift_splat_fused(dp, feat, order, bounds, 8, 512)
-    again = voxel_pool.lift_splat_fused(dp, feat, order, bounds, 8, 512)
-    want = voxel_pool.lift_splat_fused(dp, feat, order, bounds, 8, 512,
-                                       use_kernel=False)
+
+    def run(tables, use_kernel=None):
+        return voxel_pool.lift_splat_fused(*tables, order, bounds, group,
+                                           512, use_kernel=use_kernel)
+
+    got, again, want = run((dp, feat)), run((dp, feat)), run((dp, feat),
+                                                             False)
     _check_splat(got, again, want)
     assert got.dtype == torch.float32
-    _check_splat(got, again, voxel_pool.lift_splat_fused(
-        dp.float(), feat.float(), order, bounds, 8, 512))
+    _check_splat(got, again, run((dp.float(), feat.float())))
+    if group == 1 and kind == "random":  # a boundary falls inside a pair
+        assert (bounds[1:-1] % 2).any()
 
 
 @pytest.mark.parametrize("chunk_rows", [32, 64, 128])

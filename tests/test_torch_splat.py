@@ -17,6 +17,7 @@ from stereoscene_tpu.ops.pallas_splat_fused import (
     fused_splat_sorted,
     pallas_lift_splat_fused,
 )
+from chip_smoke import chunk_partition
 from stereoscene_torch.ops import splat_plan as tplan
 from stereoscene_torch.ops import voxel_pool as tpool
 
@@ -198,7 +199,7 @@ def _kernel_model(vals, bounds, group, chunk_rows):
         out[v] = acc
         writes[v] += 1
     assert (writes == 1).all() and not torch.isnan(out).any()
-    part = tpool.chunk_partition(bounds, group, rows, chunk_rows)
+    part = chunk_partition(bounds, group, rows, chunk_rows)
     assert sorted(by_chunk) == list(np.nonzero(part["direct"])[0])
     assert part["n_chunks"] == n_chunks
     return out.numpy()
@@ -280,7 +281,7 @@ def test_chunk_model_matches_pallas_fused_interpret(kind, chunk_rows):
     order, rs, bounds = _plan(ranks, 8)
     got = _kernel_model(_lifted_rows(dp, feat, order), bounds, 8, chunk_rows)
     _close(got, np.asarray(want))
-    part = tpool.chunk_partition(bounds, 8, len(order), chunk_rows)
+    part = chunk_partition(bounds, 8, len(order), chunk_rows)
     if kind == "long":
         assert part["longest"] >= 1360
     if kind == "long" and chunk_rows < 1024:  # one voxel over 10 chunks
@@ -302,7 +303,13 @@ def test_sorted_chunk_model_matches_pallas_splat_interpret(kind):
     _close(got, np.asarray(want))
 
 
-@settings(max_examples=25, deadline=None,
+# Group rows handed to JAX in the hypothesis test: every plan of at most 400
+# points has fewer (plan_budget: at most 2,048 rows of group 1, 1,024 groups
+# of 2, 640 of 8), so JAX sees one shape and compiles once.
+JAX_GROUP_ROWS = 2048
+
+
+@settings(max_examples=25, deadline=None, derandomize=True, database=None,
           suppress_health_check=[HealthCheck.too_slow])
 @given(ranks=st.lists(st.integers(0, NVOX), min_size=1, max_size=400),
        group=st.sampled_from([1, 2, 8]),
@@ -318,17 +325,22 @@ def test_chunk_model_hypothesis_ranks(ranks, group, chunk_rows, seed):
     order, rs, bounds = _plan(ranks, group)
     rows = _lifted_rows(dp, feat, order)
     got = _kernel_model(rows, bounds, group, chunk_rows)
+    # zero rows past the plan's end change no boundary's sum
+    grouped = rows.reshape(-1, group, 4).sum(1)
+    pad = JAX_GROUP_ROWS - len(grouped)
+    assert pad >= 0
     want = jpool.segment_sum_bounds(
-        jnp.asarray(rows.reshape(-1, group, 4).sum(1)),
-        jnp.asarray(rs[::group]), jnp.asarray(bounds), NVOX)
+        jnp.asarray(np.pad(grouped, ((0, pad), (0, 0)))),
+        jnp.asarray(np.pad(rs[::group], (0, pad),
+                           constant_values=NVOX + tplan.TILE)),
+        jnp.asarray(bounds), NVOX)
     _close(got, np.asarray(want))
 
 
 def test_chunk_partition_counts():
     """chunk_partition on a hand-made plan: voxel 1 fills rows 0-2, voxel 3
     rows 3-299 (chunks 0-2), voxel 4 row 300; 0 and 2 are empty."""
-    part = tpool.chunk_partition(np.array([0, 0, 3, 3, 300, 301]), 1, 320,
-                                 128)
+    part = chunk_partition(np.array([0, 0, 3, 3, 300, 301]), 1, 320, 128)
     assert part["n_chunks"] == 3 and part["longest"] == 297
     assert list(np.nonzero(part["direct"])[0]) == [1, 4]
     assert list(np.nonzero(part["crossing"])[0]) == [3]

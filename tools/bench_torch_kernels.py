@@ -7,8 +7,10 @@ turns (old, new, new, old), inside one command:
     python tools/bench_torch_kernels.py --tree DIR [--label NAME] [--steps 6]
 
 ``--tree`` is the root of a checkout (for example an older commit unpacked
-with ``git archive``); its ``stereoscene_torch`` and ``chip_smoke.py`` are
-imported, whichever tree this script lives in. Prints one JSON line:
+with ``git archive``); its ``stereoscene_torch`` is imported. The inputs,
+the library calls and the serving loop come from the ``chip_smoke.py`` of
+the checkout this script lives in, so every tree is timed by one recipe.
+Prints phase 6's line, then one JSON line:
 
 - ``k1_ms``: K1 bf16 at the flagship shapes (left / right [1, 48, 160, 64],
   D = K = 112, G = 32), the whole ``fused_gwc_warp`` call, median of 20
@@ -27,7 +29,7 @@ imported, whichever tree this script lives in. Prints one JSON line:
   128 fp32), the whole ``splat_sorted`` call, median of 20;
   ``k2_index_add_ms`` ``index_add_`` into an overflow bucket;
 - ``serve_ms``: host ms of a bf16 serving request of ``DetectorConfig()``
-  through ``BEVDepthOccupancy.infer`` (chip_smoke.py phase 6's recipe),
+  through ``BEVDepthOccupancy.infer`` (chip_smoke.py ``phase_serve``),
   median over ``--requests`` after one warm-up, and its samples;
 - ``step_ms``: bf16 train steps of ``DetectorConfig()`` built with
   ``conv3d_kernel=True`` (host wall clock per step; the first step, cuDNN's
@@ -37,6 +39,7 @@ imported, whichever tree this script lives in. Prints one JSON line:
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -46,9 +49,20 @@ import time
 
 import torch
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FX, BASELINE = 707.0, 0.54
 K4_SHAPES = ((64, 56, 24, 80, 64), (128, 28, 12, 40, 128),
              (128, 64, 64, 8, 128))  # (Ci, D, H, W, Co), 4 launches each
+
+
+def load_chip_smoke():
+    """The chip_smoke.py of this script's checkout, whichever tree is
+    benched: its inputs and its serving loop time every tree alike."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def cuda_ms(fn, iters: int = 20, reps: int = 1) -> float:
@@ -69,37 +83,10 @@ def cuda_ms(fn, iters: int = 20, reps: int = 1) -> float:
     return statistics.median(times)
 
 
-def splat_inputs(chip_smoke, splat_plan, model_cls, cfg_cls, dev) -> dict:
-    """Phase 3's inputs: the flagship calibration's group-8 plan with
-    seeded dp / feat tables (K3), and the lifted rows of its group-1 plan
-    (K2). The plan depends on the geometry only, not on the weights."""
-    import numpy as np
-
-    cfg = cfg_cls(backbone_with_cp=False)
-    model = model_cls(cfg)
-    batch = chip_smoke.flagship_batch(cfg, 0, "cpu")
-    planned = model.attach_plan(batch)
-    ranks = model.compute_ranks(batch)[0].numpy()
-    del model
-    nvox = int(np.prod(cfg.grid_shape))
-    gen = torch.Generator(device=dev).manual_seed(2)
-    fh, fw = cfg.feature_size
-    dp = torch.softmax(torch.randn(cfg.num_depth, fh * fw, generator=gen,
-                                   device=dev), 0).reshape(-1)
-    feat = torch.randn(fh * fw, cfg.numC_Trans, generator=gen, device=dev)
-    order1, rs1 = splat_plan.build_plan(ranks, nvox, group=1)
-    o1 = torch.from_numpy(order1).to(dev).long()
-    rs1 = torch.from_numpy(rs1).to(dev)
-    vals = (dp[o1][:, None] * feat[o1 % (fh * fw)]
-            * (rs1 < nvox).float()[:, None])
-    return dict(dp=dp, feat=feat, order=planned["splat_order"][0].to(dev),
-                bounds=planned["splat_bounds"][0].to(dev),
-                group=cfg.splat_group, nvox=nvox, vals=vals, ranks1=rs1)
-
-
 def bench_splats(chip_smoke, voxel_pool, x) -> dict:
-    """K3 and K2 on phase 3's inputs ``x`` (``splat_inputs``), beside
-    their library calls; K3 with bf16 tables where the tree takes them."""
+    """K3 and K2 on phase 3's inputs ``x`` (``chip_smoke.splat_inputs``),
+    beside their library calls; K3 with bf16 tables where the tree takes
+    them."""
     def k3(dp, feat):
         return voxel_pool.lift_splat_fused(dp, feat, x["order"], x["bounds"],
                                            x["group"], x["nvox"],
@@ -122,27 +109,6 @@ def bench_splats(chip_smoke, voxel_pool, x) -> dict:
     return out
 
 
-def bench_serving(chip_smoke, model_cls, cfg_cls, seeded_init_, dev,
-                  requests: int):
-    """Host ms per bf16 request (one warm-up, then ``requests``)."""
-    torch.backends.cudnn.allow_tf32 = True
-    cfg = cfg_cls(backbone_with_cp=False)
-    model = model_cls(cfg)
-    seeded_init_(model, 0)
-    model.to(torch.bfloat16)
-    times = []
-    for i in range(requests + 1):
-        batch = chip_smoke.flagship_batch(cfg, 10 + i, dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.infer(batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    del model
-    torch.cuda.empty_cache()
-    return statistics.median(times[1:]), times
-
-
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", required=True)
@@ -154,7 +120,7 @@ def main() -> None:
         raise RuntimeError("bench_torch_kernels.py needs a CUDA device")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
-    import chip_smoke
+    chip_smoke = load_chip_smoke()
     import stereoscene_torch
     from stereoscene_torch import _build
     from stereoscene_torch.engine import train
@@ -163,7 +129,7 @@ def main() -> None:
         BEVDepthOccupancy,
         DetectorConfig,
     )
-    from stereoscene_torch.ops import conv3d, gwc, splat_plan, voxel_pool
+    from stereoscene_torch.ops import conv3d, gwc, voxel_pool
     from stereoscene_torch.utils.weights import seeded_init_
 
     if not stereoscene_torch.__file__.startswith(tree):
@@ -203,11 +169,15 @@ def main() -> None:
         cudnn += lib
     del x, wt, wcl
 
-    splat = bench_splats(chip_smoke, voxel_pool, splat_inputs(
-        chip_smoke, splat_plan, BEVDepthOccupancy, DetectorConfig, dev))
-    serve, serve_samples = bench_serving(chip_smoke, BEVDepthOccupancy,
-                                         DetectorConfig, seeded_init_, dev,
-                                         args.requests)
+    cfg = DetectorConfig(backbone_with_cp=False)
+    model = BEVDepthOccupancy(cfg)
+    seeded_init_(model, 0)
+    splat = bench_splats(chip_smoke, voxel_pool, chip_smoke.splat_inputs(
+        model, chip_smoke.flagship_batch(cfg, 0, "cpu"), dev))
+    _, serve_samples = chip_smoke.phase_serve(model, cfg, dev, _build, card,
+                                              args.requests)
+    del model
+    torch.cuda.empty_cache()
 
     torch.backends.cudnn.allow_tf32 = True
     cfg = DetectorConfig()
@@ -227,7 +197,8 @@ def main() -> None:
     print(json.dumps({
         "label": args.label or tree, "card": card, "k1_ms": k1,
         "k4_ms": k4, "k4_shape_ms": per_shape, "k4_cudnn_ms": cudnn,
-        **splat, "serve_ms": serve, "serve_samples_ms": serve_samples,
+        **splat, "serve_ms": statistics.median(serve_samples),
+        "serve_samples_ms": serve_samples,
         "step_ms": statistics.median(times[1:]), "step_samples_ms": times,
         "losses": losses}), flush=True)
 

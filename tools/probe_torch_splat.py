@@ -1,29 +1,25 @@
-"""Device time of K3 and K2 (``csrc/splat.cu``) by chunk size and build.
+"""Device time of K3 and K2 (``csrc/splat.cu``) by chunk size.
 
-On the flagship calibration's plans (chip_smoke.py phase 3's inputs: the
-group-8 plan of 547,840 rows for K3, fp32 and bf16 tables; the lifted rows
-of the group-1 plan, 456,704 x 128 fp32, for K2), calls each C entry
-directly with preallocated outputs and scratch, 20 calls back to back per
-CUDA-event run, median of 20 runs, so the wrapper's host time is left out.
-Each ``--variants`` entry ``name:flags`` builds ``csrc/splat.cu`` alone
-with those nvcc flags (e.g. ``-DSPLAT_UNROLL=4``; ``base:`` is the
-source as it stands) and prints ptxas's registers, stack and spills of
-its chunk kernels; then, for each variant and chunk size, the device ms
-per call and the number of partial sums. For the first variant at the
-wrappers' ``CHUNK_ROWS`` it splits a call into its launches (chunks,
-fix-up, K2's bounds) with ``torch.profiler`` and times the host's side of
-a call (the wrappers and the bare C entries). Every output is checked
-against the plain version (1e-4 of max|ref|). Run from the repository root
-on a CUDA card:
+On the flagship calibration's plans (``chip_smoke.splat_inputs``, phase 3's
+inputs: the group-8 plan of 547,840 rows for K3, fp32 and bf16 tables;
+the lifted rows of the group-1 plan, 456,704 x 128 fp32, for K2), calls
+each C entry of the port's kernel library directly with preallocated
+outputs and scratch, 20 calls back to back per CUDA-event run, median of
+20 runs, so the wrapper's host time is left out. Prints ptxas's
+registers, stack and spills of the chunk kernels when this process built
+the library; then, for each chunk size, the device ms per call and the
+number of partial sums. At the wrappers' ``CHUNK_ROWS`` it splits a call
+into its launches (chunks, fix-up, K2's bounds) with ``torch.profiler``
+and times the host's side of a call (the wrappers and the bare C
+entries). Every output is checked against the plain version (1e-4 of
+max|ref|). Run from the repository root on a CUDA card:
 
     python tools/probe_torch_splat.py [--chunks 64,128]
-        [--variants "base:;u4:-DSPLAT_UNROLL=4"]
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -37,14 +33,13 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import chip_smoke  # noqa: E402
-from bench_torch_kernels import splat_inputs  # noqa: E402
 from probe_torch_conv3d_tiles import device_ms  # noqa: E402
 from stereoscene_torch import _build  # noqa: E402
 from stereoscene_torch.models.detector import (  # noqa: E402
     BEVDepthOccupancy,
     DetectorConfig,
 )
-from stereoscene_torch.ops import splat_plan, voxel_pool  # noqa: E402
+from stereoscene_torch.ops import voxel_pool  # noqa: E402
 
 
 def launches_ms(fn, calls: int = 20) -> dict:
@@ -82,45 +77,22 @@ def host_us(fn, calls: int = 200) -> float:
     return (t1 - t0) / calls * 1e6
 
 
-def build_variants(variants: dict) -> dict:
-    """name -> (ctypes library of csrc/splat.cu built with the flags,
-    ptxas summary of its kernels); one nvcc process per variant, all at
-    once."""
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = str(_build.CSRC / "splat.cu")
-    jobs = {}
-    for name, flags in variants.items():
-        so = _build.BUILD_DIR / f"probe_splat_{name}.{os.getpid()}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags.split(),
-               "-shared", "-o", str(so), src]
-        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True))
-    libs = {}
-    for name, (so, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        for entry in ("stereoscene_splat_fused", "stereoscene_splat_sorted"):
-            getattr(lib, entry).argtypes = _build.SIGNATURES[entry]
-            getattr(lib, entry).restype = ctypes.c_int
-        lines = log.splitlines()
-        summary = []
-        for i, line in enumerate(lines):  # registers, stack and spills
-            if "Compiling entry" in line and "splat_chunks" in line:
-                kind = line.split("splat_chunks")[1][:14]
-                summary.append(kind + ": " + ", ".join(
-                    v.split(":")[-1].strip() for v in lines[i + 2:i + 4]))
-        libs[name] = (lib, summary)
-        so.unlink()
-    return libs
+def ptxas_summary(log: str) -> list:
+    """Registers, stack and spills of each splat chunk kernel in ptxas's
+    log."""
+    lines = log.splitlines()
+    summary = []
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and "splat_chunks" in line:
+            kind = line.split("splat_chunks")[1][:14]
+            summary.append(kind + ": " + ", ".join(
+                v.split(":")[-1].strip() for v in lines[i + 2:i + 4]))
+    return summary
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--chunks", default="64,128")
-    parser.add_argument("--variants", default="base:")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("probe_torch_splat.py needs a CUDA device")
@@ -130,13 +102,14 @@ def main() -> None:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     stream = _build.stream_ptr(dev)
-    variants = dict(v.split(":", 1) for v in args.variants.split(";"))
-    libs = build_variants(variants)
-    for name, (_, summary) in libs.items():
-        print(f"variant {name} ({variants[name] or 'as the source is'}): "
-              + " | ".join(summary), flush=True)
-    x = splat_inputs(chip_smoke, splat_plan, BEVDepthOccupancy,
-                     DetectorConfig, dev)
+    lib = _build.load_kernels()
+    print("ptxas: " + (" | ".join(ptxas_summary(_build.build_log))
+                       or "library already built"), flush=True)
+    cfg = DetectorConfig(backbone_with_cp=False)
+    model = BEVDepthOccupancy(cfg)
+    x = chip_smoke.splat_inputs(
+        model, chip_smoke.flagship_batch(cfg, chip_smoke.SEED, "cpu"), dev)
+    del model
     nvox, group, c = x["nvox"], x["group"], x["feat"].shape[1]
     order, bounds, vals, ranks1 = (x["order"], x["bounds"], x["vals"],
                                    x["ranks1"])
@@ -150,7 +123,7 @@ def main() -> None:
     scratch = torch.empty(nvox + 1, dtype=torch.int32, device=dev)
     rows = {}
 
-    def k3(lib, dtype, chunk_rows, partials):
+    def k3(dtype, chunk_rows, partials):
         dp, feat = tables[dtype]
         return lambda: _build.check(lib.stereoscene_splat_fused(
             dp.data_ptr(), feat.data_ptr(), order.data_ptr(),
@@ -158,7 +131,7 @@ def main() -> None:
             group, dp.numel(), feat.shape[0], order.numel(), chunk_rows,
             int(dtype == "bf16"), stream), "stereoscene_splat_fused")
 
-    def k2(lib, chunk_rows, partials):
+    def k2(chunk_rows, partials):
         return lambda: _build.check(lib.stereoscene_splat_sorted(
             vals.data_ptr(), ranks1.data_ptr(), scratch.data_ptr(),
             partials.data_ptr(), out.data_ptr(), nvox, c, vals.shape[0],
@@ -170,7 +143,7 @@ def main() -> None:
                                1e-4 * float(want.abs().max()), 0.0)
         return fn
 
-    def host_cost(lib, chunk_rows) -> dict:
+    def host_cost(chunk_rows) -> dict:
         """Host us per call: the wrappers, then their bare C entries."""
         p3 = torch.empty((-(-order.numel() // chunk_rows), 2, c), device=dev)
         p2 = torch.empty((-(-vals.shape[0] // chunk_rows), 2, c), device=dev)
@@ -179,52 +152,45 @@ def main() -> None:
             cost[f"k3_{dtype}_wrapper"] = host_us(
                 lambda: voxel_pool.lift_splat_fused(
                     dp, feat, order, bounds, group, nvox, use_kernel=True))
-            cost[f"k3_{dtype}_entry"] = host_us(k3(lib, dtype, chunk_rows,
-                                                   p3))
+            cost[f"k3_{dtype}_entry"] = host_us(k3(dtype, chunk_rows, p3))
         cost["k2_wrapper"] = host_us(lambda: voxel_pool.splat_sorted(
             vals, ranks1, nvox, use_kernel=True))
-        cost["k2_entry"] = host_us(k2(lib, chunk_rows, p2))
+        cost["k2_entry"] = host_us(k2(chunk_rows, p2))
         return cost
 
-    first = next(iter(libs))
-    for (vname, (lib, _)), chunk_rows in (
-            (v, int(k)) for v in libs.items()
-            for k in args.chunks.split(",")):
+    for chunk_rows in (int(k) for k in args.chunks.split(",")):
+        profile = chunk_rows == voxel_pool.CHUNK_ROWS
         entry = {}
-        for name, n_rows, g in (("k3", order.numel(), group),
-                                ("k2", vals.shape[0], 1)):
+        for name, n_rows, g, plan_bounds in (
+                ("k3", order.numel(), group, bounds.cpu().numpy()),
+                ("k2", vals.shape[0], 1, x["bounds1"])):
             partials = torch.empty((-(-n_rows // chunk_rows), 2, c),
                                    device=dev)
-            profile = vname == first and chunk_rows == voxel_pool.CHUNK_ROWS
             if name == "k3":
                 for dtype in tables:
-                    fn = checked(k3(lib, dtype, chunk_rows, partials),
-                                 want3[dtype], f"k3 {dtype} {vname} "
-                                 f"chunks of {chunk_rows}")
+                    fn = checked(k3(dtype, chunk_rows, partials),
+                                 want3[dtype], f"k3 {dtype} chunks of "
+                                 f"{chunk_rows}")
                     entry[f"k3_{dtype}_ms"] = device_ms(fn)
                     if profile:
                         entry[f"k3_{dtype}_launch_ms"] = launches_ms(fn)
-                part = voxel_pool.chunk_partition(bounds.cpu().numpy(), g,
-                                                  n_rows, chunk_rows)
             else:
-                fn = checked(k2(lib, chunk_rows, partials), want2,
-                             f"k2 {vname} chunks of {chunk_rows}")
+                fn = checked(k2(chunk_rows, partials), want2,
+                             f"k2 chunks of {chunk_rows}")
                 entry["k2_ms"] = device_ms(fn)
                 if profile:
                     entry["k2_launch_ms"] = launches_ms(fn)
-                part = voxel_pool.chunk_partition(
-                    splat_plan.plan_bounds(ranks1.cpu().numpy(), nvox), 1,
-                    n_rows, chunk_rows)
+            part = chip_smoke.chunk_partition(plan_bounds, g, n_rows,
+                                              chunk_rows)
             entry[f"{name}_chunks"] = part["n_chunks"]
             entry[f"{name}_partials"] = part["n_partials"]
-        if vname == first and chunk_rows == voxel_pool.CHUNK_ROWS:
-            entry["host_us"] = host_cost(lib, chunk_rows)
-        rows[f"{vname} {chunk_rows}"] = entry
-        print(f"variant {vname}, chunks of {chunk_rows} rows: "
-              + json.dumps(entry), flush=True)
+        if profile:
+            entry["host_us"] = host_cost(chunk_rows)
+        rows[chunk_rows] = entry
+        print(f"chunks of {chunk_rows} rows: " + json.dumps(entry),
+              flush=True)
     print(json.dumps({"card": card, "default_chunk_rows":
-                      voxel_pool.CHUNK_ROWS, "variants": variants,
-                      "by_variant_and_chunk_rows": rows}))
+                      voxel_pool.CHUNK_ROWS, "by_chunk_rows": rows}))
 
 
 if __name__ == "__main__":
