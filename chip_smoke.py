@@ -468,10 +468,16 @@ def dcn_library(z, idx, wgt):
         flat, table, per_sample_weights=per_sample, mode="sum")
 
 
-def phase_dcn(model, dev, deform_conv) -> dict:
-    """P1 at the flagship DepthNet DCN: x [1, fH, fW, 640], G = 4, the
-    seeded model's tap weights; offsets at the probe's scale and from the
-    seeded offset head. Times in bf16 (serving's dtype)."""
+def dcn_inputs(model, dev) -> dict:
+    """Phase 4b's inputs at the flagship DepthNet DCN: x [1, fH, fW, 640]
+    from the seed, the seeded model's tap weights ``taps`` [9, C / G, C]
+    and ``groups``; offsets [1, fH, fW, 18] at the Pallas probe's scale
+    (``probe``, randn * 1.5), from the seeded offset head (``seeded``, fp32,
+    contiguous) and as serving hands them to P1 (``serving``: the bf16
+    head's NCHW output seen through ``permute(0, 2, 3, 1)``, not copied);
+    z of every tap in bf16 (``zb``) and fp32 (``z32``)."""
+    from stereoscene_torch.ops import deform_conv
+
     dcn = model.img_view_transformer.depth_net.depth_conv[4]
     fh, fw = model.cfg.feature_size
     c, groups = dcn.weight.shape[0], dcn.groups
@@ -479,11 +485,30 @@ def phase_dcn(model, dev, deform_conv) -> dict:
     x = torch.randn(1, fh, fw, c, generator=gen, device=dev)
     taps = (dcn.weight.detach().reshape(c, c // groups, 9).permute(2, 1, 0)
             .contiguous())
+    head = dcn.conv_offset
     with torch.no_grad():
-        seeded = dcn.conv_offset(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()  # as the ASPP hands it
+        seeded = head(x_nchw).permute(0, 2, 3, 1)
+        serving = torch.nn.functional.conv2d(
+            x_nchw.bfloat16(), head.weight.bfloat16(),
+            head.bias.bfloat16(), padding=1).permute(0, 2, 3, 1)
     offsets = {"probe": torch.randn(1, fh, fw, 18, generator=gen,
                                     device=dev) * 1.5,
-               "seeded": seeded.contiguous()}
+               "seeded": seeded.contiguous(), "serving": serving}
+    return dict(x=x, taps=taps, groups=groups, offsets=offsets,
+                zb=deform_conv.dcn_z(x.bfloat16(), taps.bfloat16(), groups),
+                z32=deform_conv.dcn_z(x, taps, groups))
+
+
+def phase_dcn(model, dev, deform_conv) -> dict:
+    """P1 at the flagship DepthNet DCN: x [1, fH, fW, 640], G = 4, the
+    seeded model's tap weights; offsets at the probe's scale and from the
+    seeded offset head. Times in bf16 (serving's dtype)."""
+    inputs = dcn_inputs(model, dev)
+    x, taps, groups = inputs["x"], inputs["taps"], inputs["groups"]
+    fh, fw, c = x.shape[1:]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    offsets = {k: v for k, v in inputs["offsets"].items() if k != "serving"}
     errs = {}
     for name, off in offsets.items():
         idx, wgt = deform_conv.dcn_corner_tables(off, fh, fw)
@@ -521,8 +546,7 @@ def phase_dcn(model, dev, deform_conv) -> dict:
     off = offsets["seeded"]
     idx, wgt = deform_conv.dcn_corner_tables(off, fh, fw)
     xb, tb = x.bfloat16(), taps.bfloat16()
-    zb = deform_conv.dcn_z(xb, tb, groups)
-    z32 = deform_conv.dcn_z(x, taps, groups)
+    zb, z32 = inputs["zb"], inputs["z32"]
     ms = cuda_ms(lambda: deform_conv.dcn_gather_kernel(zb, off))
     plain = cuda_ms(lambda: deform_conv.dcn_gather_plain(zb, off))
     lib = cuda_ms(dcn_library(zb, idx, wgt))
@@ -561,19 +585,30 @@ def phase_dcn(model, dev, deform_conv) -> dict:
     return p1
 
 
+def take_rows_inputs(dev) -> tuple:
+    """Phase 4c's inputs, the Pallas probe's shapes: feat [7680, 128] fp32
+    and int32 indices for each of the three layouts, [1024, 128] per
+    element, [1024, 1] per row and [1024] flat -> (feat, {layout: idx})."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows, c, m = 7680, 128, 1024
+    feat = torch.randn(rows, c, generator=gen, device=dev)
+    layouts = {name: torch.randint(0, rows, shape, generator=gen, device=dev,
+                                   dtype=torch.int32)
+               for name, shape in (("per element", (m, c)),
+                                   ("per row", (m, 1)), ("flat", (m,)))}
+    return feat, layouts
+
+
 def phase_take_rows(dev, gather) -> dict:
     """P2 at the probe's shapes for its three index layouts; the
     kernels-line entry sums the three (one launch each). The bound counts
     the table rows this run's indices touch, not the whole table."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    rows, c, m = 7680, 128, 1024
-    feat = torch.randn(rows, c, generator=gen, device=dev)
+    feat, layouts = take_rows_inputs(dev)
+    (rows, c), m = feat.shape, layouts["flat"].shape[0]
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
     moved, parts = 0, []
-    for name, shape in (("per element", (m, c)), ("per row", (m, 1)),
-                        ("flat", (m,))):
-        idx = torch.randint(0, rows, shape, generator=gen, device=dev,
-                            dtype=torch.int32)
+    for name, idx in layouts.items():
+        shape = tuple(idx.shape)
         got = gather.take_along_rows(feat, idx, use_kernel=True)
         want = gather.take_along_rows(feat, idx, use_kernel=False)
         idx64 = idx.long().reshape(m, -1)
