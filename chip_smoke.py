@@ -30,16 +30,20 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    per shape and per forward: bf16 kernel, plain and cuDNN ms, the bound,
    the kernel's share of it and its TFLOP/s;
 4b. P1 (the DCN gather) at the flagship DepthNet DCN [1, 48, 160, 640],
-   G = 4, with the Pallas probe's offsets (randn * 1.5) and the seeded
-   offset head's: the kernel against its plain version (fp32 1e-5, bf16
-   2e-2 of max|ref|), the whole z-gather route against the plain gather
-   DCN (fp32, 1e-5), and its autograd Function's gradients (x, offsets,
-   weights) against plain autograd (fp32, 1e-5 of each gradient's max);
-   timed beside ``F.embedding_bag`` on the corner tables (held to the
-   same tolerances);
+   G = 4, with the Pallas probe's offsets (randn * 1.5), the seeded offset
+   head's and serving's (the bf16 head output as a permuted NCHW view, read
+   in place): the kernel against its plain version (fp32 1e-5, bf16 2e-2
+   of max|ref|), two launches bitwise equal, the whole z-gather route
+   against the plain gather DCN (fp32, 1e-5), and its autograd Function's
+   gradients (x, offsets, weights) against plain autograd (fp32, 1e-5 of
+   each gradient's max); timed beside ``F.embedding_bag`` on the corner
+   tables (held to the same tolerances); its bare C entry's device time and
+   share of the bound;
 4c. P2 (the row gather) at the Pallas probe's shapes, feat [7680, 128], for
    the three index layouts [1024, 128], [1024, 1] and [1024]: bitwise
-   equal to its plain version; timed beside ``torch.take_along_dim``;
+   equal to its plain version; its whole call timed beside
+   ``torch.take_along_dim``'s, and its kernel's device time
+   (torch.profiler);
 5. the flagship forward (EfficientNet-b7, 384x1280, D = 112, the 64x64x8
    grid of 0.8 m voxels) in fp32 with and without the kernels, seeded
    random weights;
@@ -115,6 +119,23 @@ def cuda_ms(fn, iters: int = 20, reps: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, name: str, calls: int = 20):
+    """Device ms per call of the kernels whose name holds ``name`` among
+    those ``fn`` launches, by torch.profiler over ``calls`` calls after one
+    warm-up: a kernel's own time where the call's host side outlasts it.
+    None when the profiler records no device time for them."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "device_time_total", 0.0)
+             for ev in prof.key_averages() if name in ev.key)
+    return us / 1e3 / calls if us else None
 
 
 def bound(nbytes: float, ops: float, dtype) -> dict:
@@ -502,25 +523,31 @@ def dcn_inputs(model, dev) -> dict:
 
 def phase_dcn(model, dev, deform_conv) -> dict:
     """P1 at the flagship DepthNet DCN: x [1, fH, fW, 640], G = 4, the
-    seeded model's tap weights; offsets at the probe's scale and from the
-    seeded offset head. Times in bf16 (serving's dtype)."""
+    seeded model's tap weights; offsets at the probe's scale, from the
+    seeded offset head and as serving hands them (bf16, permuted). Times in
+    bf16 (serving's dtype); the kernels-line entry takes the seeded fp32
+    offsets, as earlier PRs timed it."""
+    from stereoscene_torch import _build
+
     inputs = dcn_inputs(model, dev)
     x, taps, groups = inputs["x"], inputs["taps"], inputs["groups"]
+    offsets, zb, z32 = inputs["offsets"], inputs["zb"], inputs["z32"]
     fh, fw, c = x.shape[1:]
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    offsets = {k: v for k, v in inputs["offsets"].items() if k != "serving"}
     errs = {}
     for name, off in offsets.items():
         idx, wgt = deform_conv.dcn_corner_tables(off, fh, fw)
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            z = deform_conv.dcn_z(x.to(dtype), taps.to(dtype), groups)
+        for z, tol in ((z32, 1e-5), (zb, 2e-2)):
             want = deform_conv.dcn_gather_plain(z, off)
             limit = tol * float(want.float().abs().max())
-            errs[name, dtype] = check_close(
-                f"dcn gather {name} {dtype}",
-                deform_conv.dcn_gather_kernel(z, off), want, limit, 0.0)
-            errs[name, dtype, "library"] = check_close(
-                f"dcn embedding_bag {name} {dtype}",
+            got = deform_conv.dcn_gather_kernel(z, off)
+            errs[name, z.dtype] = check_close(
+                f"dcn gather {name} {z.dtype}", got, want, limit, 0.0)
+            if not torch.equal(got, deform_conv.dcn_gather_kernel(z, off)):
+                raise AssertionError(f"dcn gather {name} {z.dtype}: two "
+                                     "launches differ")
+            errs[name, z.dtype, "library"] = check_close(
+                f"dcn embedding_bag {name} {z.dtype}",
                 dcn_library(z, idx, wgt)(), want, limit, 0.0)
         with torch.no_grad():
             want = deform_conv.deform_conv2d_plain(x, off, taps, groups)
@@ -543,11 +570,11 @@ def phase_dcn(model, dev, deform_conv) -> dict:
         raise AssertionError("dcn backward: zero offset gradient")
     del ins, ref, g
 
-    off = offsets["seeded"]
+    off, serving = offsets["seeded"], offsets["serving"]
     idx, wgt = deform_conv.dcn_corner_tables(off, fh, fw)
     xb, tb = x.bfloat16(), taps.bfloat16()
-    zb, z32 = inputs["zb"], inputs["z32"]
     ms = cuda_ms(lambda: deform_conv.dcn_gather_kernel(zb, off))
+    ms_serving = cuda_ms(lambda: deform_conv.dcn_gather_kernel(zb, serving))
     plain = cuda_ms(lambda: deform_conv.dcn_gather_plain(zb, off))
     lib = cuda_ms(dcn_library(zb, idx, wgt))
     ms32 = cuda_ms(lambda: deform_conv.dcn_gather_kernel(z32, off))
@@ -559,29 +586,46 @@ def phase_dcn(model, dev, deform_conv) -> dict:
         route_plain = cuda_ms(lambda: deform_conv.deform_conv2d_plain(
             xb, off, tb, groups))
     out = deform_conv.dcn_gather_kernel(zb, off)
-    # z, the offsets as the kernel reads them (fp32) and the output; 36
-    # fp32 multiply-adds per output value
-    moved = nbytes(zb, off.float(), out)
+    # the bare C entry, 20 calls back to back: device time without the
+    # wrapper's host side
+    bare = {}
+    for name, o in (("seeded", off), ("serving", serving)):
+        args = deform_conv.dcn_gather_args(zb, o)
+        stream = _build.stream_ptr(dev)
+        bare[name] = cuda_ms(lambda: _build.check(
+            _build.load_kernels().stereoscene_dcn_gather(
+                zb.data_ptr(), o.data_ptr(), out.data_ptr(), *args, stream),
+            "stereoscene_dcn_gather"), reps=20) / 20
+    # z, the offsets and the output; 36 fp32 multiply-adds per output value
+    moved = nbytes(zb, off, out)
     p1 = dict(max_abs_err=max(v for k, v in errs.items()
                               if k[1] == torch.float32 and len(k) == 2),
               ms=ms, plain_ms=plain, library_ms=lib,
               **bound(moved, 2 * 36 * out.numel(), torch.float32))
+    share = p1["bound_ms"] / bare["seeded"]
     print(f"phase 4b P1 dcn_gather [1, {fh}, {fw}, {c}] G {groups}: max abs "
           f"err kernel vs plain fp32 probe {errs['probe', torch.float32]:.3e} "
-          f"seeded {errs['seeded', torch.float32]:.3e}, bf16 probe "
+          f"seeded {errs['seeded', torch.float32]:.3e} serving "
+          f"{errs['serving', torch.float32]:.3e}, bf16 probe "
           f"{errs['probe', torch.bfloat16]:.3e} seeded "
-          f"{errs['seeded', torch.bfloat16]:.3e}; embedding_bag vs plain "
-          f"fp32 {errs['seeded', torch.float32, 'library']:.3e} bf16 "
+          f"{errs['seeded', torch.bfloat16]:.3e} serving (bf16 offsets, "
+          f"permuted NCHW view) {errs['serving', torch.bfloat16]:.3e}; two "
+          f"launches bitwise equal for each; embedding_bag vs plain fp32 "
+          f"{errs['seeded', torch.float32, 'library']:.3e} bf16 "
           f"{errs['seeded', torch.bfloat16, 'library']:.3e}; route vs plain "
           f"gather DCN fp32 probe {errs['probe', 'route']:.3e} seeded "
-          f"{errs['seeded', 'route']:.3e}; backward dx {grad_errs[0]:.3e} "
+          f"{errs['seeded', 'route']:.3e} serving "
+          f"{errs['serving', 'route']:.3e}; backward dx {grad_errs[0]:.3e} "
           f"doffsets {grad_errs[1]:.3e} dweights {grad_errs[2]:.3e}; median "
-          f"of 20, bf16: kernel {ms:.4f} ms plain {plain:.4f} ms "
-          f"embedding_bag {lib:.4f} ms bound {p1['bound_ms']:.4f} ms "
-          f"({p1['bound_by']}, {moved / 1e6:.1f} MB), fp32: kernel "
-          f"{ms32:.4f} ms embedding_bag {lib32:.4f} ms; whole DCN bf16: "
-          f"z-gather route {route:.4f} ms (z {zms:.4f} ms), plain gather "
-          f"DCN {route_plain:.4f} ms", flush=True)
+          f"of 20, bf16: kernel {ms:.4f} ms (serving offsets {ms_serving:.4f}"
+          f" ms) plain {plain:.4f} ms embedding_bag {lib:.4f} ms bound "
+          f"{p1['bound_ms']:.4f} ms ({p1['bound_by']}, {moved / 1e6:.1f} MB);"
+          f" bare C entry (20 back to back) {bare['seeded']:.4f} ms, "
+          f"{share:.1%} of the bound (serving offsets "
+          f"{bare['serving']:.4f} ms); fp32: kernel {ms32:.4f} ms "
+          f"embedding_bag {lib32:.4f} ms; whole DCN bf16: z-gather route "
+          f"{route:.4f} ms (z {zms:.4f} ms), plain gather DCN "
+          f"{route_plain:.4f} ms", flush=True)
     return p1
 
 
@@ -602,7 +646,9 @@ def take_rows_inputs(dev) -> tuple:
 def phase_take_rows(dev, gather) -> dict:
     """P2 at the probe's shapes for its three index layouts; the
     kernels-line entry sums the three (one launch each). The bound counts
-    the table rows this run's indices touch, not the whole table."""
+    the table rows this run's indices touch, not the whole table. The
+    kernel's own device time comes from torch.profiler: a call's host side
+    outlasts it."""
     feat, layouts = take_rows_inputs(dev)
     (rows, c), m = feat.shape, layouts["flat"].shape[0]
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
@@ -620,6 +666,8 @@ def phase_take_rows(dev, gather) -> dict:
         plain = cuda_ms(lambda: gather.take_along_rows(feat, idx,
                                                        use_kernel=False))
         lib = cuda_ms(lambda: torch.take_along_dim(feat, idx64, dim=0))
+        device = kernel_ms(lambda: gather.take_along_rows(feat, idx),
+                           "take_rows")
         if idx64.shape[1] == 1:
             touched = int(torch.unique(idx64).numel()) * c * 4
         else:  # distinct (row, column) elements
@@ -630,7 +678,9 @@ def phase_take_rows(dev, gather) -> dict:
         for key, value in (("ms", ms), ("plain_ms", plain),
                            ("library_ms", lib)):
             total[key] += value
-        parts.append(f"{name} idx {list(shape)}: kernel {ms:.4f} ms plain "
+        kernel = "not measured" if device is None else f"{device:.4f} ms"
+        parts.append(f"{name} idx {list(shape)}: whole call {ms:.4f} ms "
+                     f"(the kernel's device time {kernel}) plain "
                      f"{plain:.4f} ms take_along_dim {lib:.4f} ms, "
                      f"{b / 1e6:.2f} MB")
     total.update(bound(moved, 0, torch.float32))

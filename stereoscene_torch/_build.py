@@ -10,9 +10,11 @@ the CPU test suite imports every module on a host with no ``nvcc``.
 
 Every C entry takes its pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()`` after the launch; ``check()`` raises on a nonzero code.
+Every wrapper launches through ``launch()``, which binds each entry once,
+passes the current stream, checks the code and counts the launch.
 
-``launch_counts`` holds one integer per kernel entry. A wrapper adds one right
-after it launched its kernel and nowhere else, so a run can show that its
+``launch_counts`` holds one integer per kernel entry. ``launch()`` adds one
+right after the kernel launched and nowhere else, so a run can show that its
 path went through the kernels.
 """
 
@@ -27,6 +29,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels_build"
@@ -38,27 +42,28 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry name -> argtypes (every pointer and the stream as c_void_p)
+# kernel (its key in launch_counts) -> (C entry, argtypes before the stream;
+# every pointer as c_void_p)
 SIGNATURES = {
-    # left, right, positions, out, B, H, W, C, G, K, D, in_bf16, out_bf16,
-    # stream
-    "stereoscene_gwc_warp": [_P] * 4 + [_I] * 9 + [_P],
+    # left, right, positions, out, B, H, W, C, G, K, D, in_bf16, out_bf16
+    "gwc_warp": ("stereoscene_gwc_warp", [_P] * 4 + [_I] * 9),
     # dp, feat, order, bounds, partials, out, num_voxels, C, group, P, HW,
-    # rows, chunk_rows, bf16, stream
-    "stereoscene_splat_fused": [_P] * 6 + [_I] * 8 + [_P],
-    # vals, ranks, bounds, partials, out, num_voxels, C, rows, chunk_rows,
-    # stream
-    "stereoscene_splat_sorted": [_P] * 5 + [_I] * 4 + [_P],
-    # x, w, wk, y, B, D, H, W, Ci, Co, bf16, w_fp32, block_n, stream
-    "stereoscene_conv3d_s1": [_P] * 4 + [_I] * 9 + [_P],
-    # z, offsets, out, N, C, H, W, kw, z_bf16, stream
-    "stereoscene_dcn_gather": [_P] * 3 + [_I] * 6 + [_P],
-    # feat, idx, out, M, C, R, idx_col_stride, stream
-    "stereoscene_take_rows": [_P] * 3 + [_I] * 4 + [_P],
+    # rows, chunk_rows, bf16
+    "lift_splat_fused": ("stereoscene_splat_fused", [_P] * 6 + [_I] * 8),
+    # vals, ranks, bounds, partials, out, num_voxels, C, rows, chunk_rows
+    "splat_sorted": ("stereoscene_splat_sorted", [_P] * 5 + [_I] * 4),
+    # x, w, wk, y, B, D, H, W, Ci, Co, bf16, w_fp32, block_n
+    "conv3d_s1": ("stereoscene_conv3d_s1", [_P] * 4 + [_I] * 9),
+    # z, offsets, out, B, H, W, C, kw, z_bf16, offsets_bf16, the offsets'
+    # strides (b, h, w, c), tiles, slices
+    "dcn_gather": ("stereoscene_dcn_gather", [_P] * 3 + [_I] * 13),
+    # feat, idx, out, M, C, R, idx_col_stride
+    "take_rows": ("stereoscene_take_rows", [_P] * 3 + [_I] * 4),
 }
 
 launch_counts: "collections.Counter[str]" = collections.Counter()
 _lib = None
+_entries: dict = {}  # kernel -> its C entry, bound by load_kernels()
 build_seconds = 0.0  # wall time of this process's nvcc run (0: cached)
 build_log = ""  # nvcc / ptxas output of that run (registers, spills)
 
@@ -125,10 +130,11 @@ def load_kernels() -> ctypes.CDLL:
             obj.unlink()
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in SIGNATURES.items():
+    for kernel, (name, argtypes) in SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = [*argtypes, _P]
         fn.restype = ctypes.c_int
+        _entries[kernel] = fn
     _lib = lib
     return lib
 
@@ -141,6 +147,27 @@ def check(code: int, name: str) -> None:
 def stream_ptr(device) -> int:
     """The current CUDA stream of ``device`` (a CUDA tensor's device) as an
     integer handle, without building a ``torch.cuda.Stream``."""
-    import torch
-
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def launch(kernel: str, device: int, *args) -> None:
+    """Launch ``kernel``'s C entry (``SIGNATURES``) with ``args``, its
+    pointers and integers before the stream, on the current stream of card
+    ``device`` (the index a CUDA tensor's ``get_device()`` gives); raise if
+    it returns an error; count the launch in ``launch_counts``.
+
+    The one launch path of every wrapper. It enters a device guard only
+    when ``device`` is not the current card: ``torch.cuda.device`` costs a
+    device exchange on entry and on exit."""
+    fn = _entries.get(kernel)
+    if fn is None:
+        load_kernels()
+        fn = _entries[kernel]
+    if device == torch._C._cuda_getDevice():
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    if code:
+        check(code, SIGNATURES[kernel][0])
+    launch_counts[kernel] += 1

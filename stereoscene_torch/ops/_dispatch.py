@@ -15,9 +15,12 @@ def want_kernel(name: str, use_kernel, *tensors: torch.Tensor,
     ask for the kernel. A wrapper whose kernel has no backward
     (``differentiable`` False) raises when asked for the kernel with an
     input that requires grad under grad mode."""
+    # plain loops, not generators: this runs on every kernel call's host
+    # path
     cuda = tensors[0].is_cuda
-    if any(t.is_cuda != cuda for t in tensors):
-        raise ValueError(f"{name}: inputs are on different devices")
+    for t in tensors:
+        if t.is_cuda != cuda:
+            raise ValueError(f"{name}: inputs are on different devices")
     if use_kernel is False:
         return False
     if not cuda:
@@ -26,9 +29,10 @@ def want_kernel(name: str, use_kernel, *tensors: torch.Tensor,
                 f"{name}: use_kernel=True needs CUDA tensors, got "
                 f"{tensors[0].device}")
         return False
-    if (not differentiable and torch.is_grad_enabled()
-            and any(t.requires_grad for t in tensors)):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward-only; run under "
-            f"torch.no_grad() or pass use_kernel=False")
+    if not differentiable and torch.is_grad_enabled():
+        for t in tensors:
+            if t.requires_grad:
+                raise NotImplementedError(
+                    f"{name}: the CUDA kernel is forward-only; run under "
+                    f"torch.no_grad() or pass use_kernel=False")
     return True

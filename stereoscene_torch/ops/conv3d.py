@@ -77,14 +77,10 @@ def conv3d_s1_kernel(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         wk, block_n = wp, 0
     out = torch.empty((b, co, d, h, w), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last_3d)
-    lib = _build.load_kernels()
-    with torch.cuda.device(x.device):  # launch on the tensors' card
-        _build.check(lib.stereoscene_conv3d_s1(
-            xc.data_ptr(), wp.data_ptr(), wk.data_ptr(), out.data_ptr(), b,
-            d, h, w, ci, co, int(bf16), int(wp.dtype == torch.float32),
-            block_n, _build.stream_ptr(x.device),
-        ), "stereoscene_conv3d_s1")
-    _build.launch_counts["conv3d_s1"] += 1
+    _build.launch(
+        "conv3d_s1", x.get_device(), xc.data_ptr(), wp.data_ptr(),
+        wk.data_ptr(), out.data_ptr(), b, d, h, w, ci, co, int(bf16),
+        int(wp.dtype == torch.float32), block_n)
     return out
 
 

@@ -172,21 +172,26 @@ def dcn_gather_plain(z: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     return out.to(z.dtype)
 
 
-def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
-    """``t`` contiguous at an address the kernel's vector loads can take."""
-    t = t.contiguous()
-    return t.clone() if t.data_ptr() % nbytes else t
+# csrc/dcn.cu: a block gathers 256 bytes of each z row (kSliceBytes: 128
+# bf16 or 64 fp32 channels) for a tile of 2 x 8 pixels (kTileH x kTileW)
+TILE_H, TILE_W, SLICE_BYTES = 2, 8, 256
+_INT32_MAX = 2**31 - 1
 
 
-def dcn_gather_kernel(z: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/dcn.cu`` (P1) on CUDA tensors or raise: z [K, B*H*W,
-    C] fp32 or bf16 with C a multiple of 16 bytes' worth and K = kw * kw
-    <= 9, offsets [B, H, W, 2*K] (read as fp32) -> [B*H*W, C] in z's
-    dtype."""
+def dcn_gather_args(z: torch.Tensor, offsets: torch.Tensor) -> tuple:
+    """The integer arguments of ``stereoscene_dcn_gather`` (P1) for z
+    [K, B*H*W, C] and offsets [B, H, W, 2*K], read where they lie: (B, H,
+    W, C, kw, z_bf16, offsets_bf16, the offsets' strides in elements (b,
+    h, w, c), the grid's pixel tiles B * ceil(H / TILE_H) * ceil(W /
+    TILE_W), its channel slices ceil(C * element size / SLICE_BYTES)).
+    Raises on what
+    the kernel does not take: z not fp32 / bf16, offsets not fp32 / bf16,
+    C not a multiple of 16 bytes' worth, K not a square <= 9, mismatched
+    shapes or sizes past int32."""
     if z.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dcn_gather kernel takes fp32/bf16 z, got {z.dtype}")
-    if not offsets.is_floating_point():
-        raise TypeError(f"dcn_gather kernel takes float offsets, got "
+    if offsets.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dcn_gather kernel takes fp32/bf16 offsets, got "
                         f"{offsets.dtype}")
     if z.dim() != 3 or offsets.dim() != 4:
         raise ValueError(f"dcn_gather kernel: z {tuple(z.shape)} and offsets "
@@ -202,18 +207,32 @@ def dcn_gather_kernel(z: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     if c % vec or kw * kw != k or not 1 <= k <= 9 or n == 0:
         raise ValueError(f"dcn_gather kernel takes C % {vec} == 0, K a square "
                          f"<= 9 and N > 0, got C {c}, K {k}, N {n}")
-    if not (z.is_cuda and offsets.device == z.device):
+    strides = offsets.stride()
+    if n > _INT32_MAX or max(strides) > _INT32_MAX:
+        raise ValueError(f"dcn_gather kernel: {n} rows or offset strides "
+                         f"{strides} past int32")
+    return (b, h, w, c, kw, int(z.dtype == torch.bfloat16),
+            int(offsets.dtype == torch.bfloat16), *strides,
+            b * -(-h // TILE_H) * -(-w // TILE_W),
+            -(-c * z.element_size() // SLICE_BYTES))
+
+
+def dcn_gather_kernel(z: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/dcn.cu`` (P1) on CUDA tensors or raise: z [K, B*H*W,
+    C] fp32 or bf16 with C a multiple of 16 bytes' worth and K = kw * kw
+    <= 9, offsets [B, H, W, 2*K] fp32 or bf16 in any layout (read in place,
+    bf16 widened exactly) -> [B*H*W, C] in z's dtype."""
+    args = dcn_gather_args(z, offsets)
+    device = z.get_device()
+    if device < 0 or offsets.get_device() != device:
         raise ValueError("dcn_gather kernel: z and the offsets must be on one "
                          "card")
-    z, offsets = _aligned(z, 16), _aligned(offsets.float(), 8)
-    out = torch.empty((n, c), dtype=z.dtype, device=z.device)
-    lib = _build.load_kernels()
-    with torch.cuda.device(z.device):  # launch on the tensors' card
-        _build.check(lib.stereoscene_dcn_gather(
-            z.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, c, h, w, kw,
-            int(z.dtype == torch.bfloat16), _build.stream_ptr(z.device),
-        ), "stereoscene_dcn_gather")
-    _build.launch_counts["dcn_gather"] += 1
+    z = z.contiguous()
+    if z.data_ptr() % 16:  # the kernel's 16-byte vector loads
+        z = z.clone()
+    out = z.new_empty(z.shape[1:])
+    _build.launch("dcn_gather", device, z.data_ptr(), offsets.data_ptr(),
+                  out.data_ptr(), *args)
     return out
 
 

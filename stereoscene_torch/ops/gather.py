@@ -15,20 +15,22 @@ from .. import _build
 from ._dispatch import want_kernel
 
 
-def _index_2d(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """idx [M] / [M, 1] / [M, C] as [M, 1] or [M, C]."""
+def _per_element(feat: torch.Tensor, idx: torch.Tensor) -> bool:
+    """True for idx [M, C] (one index per element), False for [M] / [M, 1]
+    (one per row); raises on any other shape."""
     if idx.dim() == 1:
-        idx = idx[:, None]
+        return False
     if idx.dim() != 2 or idx.shape[1] not in (1, feat.shape[1]):
         raise ValueError(f"take_along_rows: idx {tuple(idx.shape)} is not "
                          f"[M], [M, 1] or [M, {feat.shape[1]}]")
-    return idx
+    return idx.shape[1] != 1
 
 
 def take_along_rows_plain(feat: torch.Tensor, idx: torch.Tensor
                           ) -> torch.Tensor:
     """The plain version of P2: ``feat.gather(0, idx.expand(M, C))``."""
-    idx = _index_2d(feat, idx)
+    _per_element(feat, idx)
+    idx = idx.reshape(idx.shape[0], -1)
     return feat.gather(0, idx.long().expand(idx.shape[0], feat.shape[1]))
 
 
@@ -43,23 +45,19 @@ def take_along_rows_kernel(feat: torch.Tensor, idx: torch.Tensor
     if feat.dim() != 2:
         raise ValueError(f"take_rows kernel: feat {tuple(feat.shape)} is "
                          "not [R, C]")
-    idx = _index_2d(feat, idx)
+    per_element = _per_element(feat, idx)
     (r, c), m = feat.shape, idx.shape[0]
-    if not (feat.is_cuda and idx.device == feat.device):
+    device = feat.get_device()
+    if device < 0 or idx.get_device() != device:
         raise ValueError("take_rows kernel: feat and idx must be on one card")
-    out = torch.empty((m, c), dtype=feat.dtype, device=feat.device)
-    if out.numel() == 0:
+    out = feat.new_empty((m, c))
+    if m == 0 or c == 0:
         return out
     if r == 0:
         raise IndexError("take_rows kernel: gather from an empty table")
     feat, idx = feat.contiguous(), idx.contiguous()
-    lib = _build.load_kernels()
-    with torch.cuda.device(feat.device):  # launch on the tensors' card
-        _build.check(lib.stereoscene_take_rows(
-            feat.data_ptr(), idx.data_ptr(), out.data_ptr(), m, c, r,
-            int(idx.shape[1] != 1), _build.stream_ptr(feat.device),
-        ), "stereoscene_take_rows")
-    _build.launch_counts["take_rows"] += 1
+    _build.launch("take_rows", device, feat.data_ptr(), idx.data_ptr(),
+                  out.data_ptr(), m, c, r, int(per_element))
     return out
 
 

@@ -98,15 +98,11 @@ def gwc_warp_kernel(left, right, positions, max_disp, num_groups,
     positions = positions.float().contiguous()
     out = torch.empty((b, num_out, h, w, num_groups), dtype=out_dtype,
                       device=left.device)
-    lib = _build.load_kernels()
-    with torch.cuda.device(left.device):  # launch on the tensors' card
-        _build.check(lib.stereoscene_gwc_warp(
-            left.data_ptr(), right.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), b, h, w, c, num_groups, num_out, max_disp,
-            int(left.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), _build.stream_ptr(left.device),
-        ), "stereoscene_gwc_warp")
-    _build.launch_counts["gwc_warp"] += 1
+    _build.launch(
+        "gwc_warp", left.get_device(), left.data_ptr(), right.data_ptr(),
+        positions.data_ptr(), out.data_ptr(), b, h, w, c, num_groups,
+        num_out, max_disp, int(left.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16))
     return out
 
 

@@ -96,15 +96,11 @@ def lift_splat_fused(
     out = torch.empty((num_voxels, c), dtype=torch.float32, device=dp.device)
     partials = torch.empty((-(-rows // CHUNK_ROWS), 2, c),
                            dtype=torch.float32, device=dp.device)
-    lib = _build.load_kernels()
-    with torch.cuda.device(dp.device):  # launch on the tensors' card
-        _build.check(lib.stereoscene_splat_fused(
-            dp.data_ptr(), feat.data_ptr(), order.data_ptr(),
-            bounds.data_ptr(), partials.data_ptr(), out.data_ptr(),
-            num_voxels, c, group, p_total, hw, rows, CHUNK_ROWS,
-            int(dp.dtype == torch.bfloat16), _build.stream_ptr(dp.device),
-        ), "stereoscene_splat_fused")
-    _build.launch_counts["lift_splat_fused"] += 1
+    _build.launch(
+        "lift_splat_fused", dp.get_device(), dp.data_ptr(), feat.data_ptr(),
+        order.data_ptr(), bounds.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), num_voxels, c, group, p_total, hw, rows, CHUNK_ROWS,
+        int(dp.dtype == torch.bfloat16))
     return out
 
 
@@ -146,14 +142,10 @@ def splat_sorted(
                            dtype=torch.float32, device=vals.device)
     bounds = torch.empty(num_voxels + 1, dtype=torch.int32,
                          device=vals.device)
-    lib = _build.load_kernels()
-    with torch.cuda.device(vals.device):  # launch on the tensors' card
-        _build.check(lib.stereoscene_splat_sorted(
-            vals.data_ptr(), ranks_sorted.data_ptr(), bounds.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), num_voxels, c, rows,
-            CHUNK_ROWS, _build.stream_ptr(vals.device),
-        ), "stereoscene_splat_sorted")
-    _build.launch_counts["splat_sorted"] += 1
+    _build.launch(
+        "splat_sorted", vals.get_device(), vals.data_ptr(),
+        ranks_sorted.data_ptr(), bounds.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), num_voxels, c, rows, CHUNK_ROWS)
     return out
 
 

@@ -151,3 +151,79 @@ def test_depth_net_plain_route_matches_jax(bridged):  # noqa: F811
     _check(got.permute(0, 2, 3, 1), want)
     with pytest.raises(ValueError, match="CUDA"), torch.no_grad():
         dn(_nchw(x), torch.from_numpy(ml), use_kernel=True)
+
+
+@pytest.mark.parametrize("seed,shape", [(20, (2, 7, 9, 16)),
+                                        (21, (1, 5, 11, 32))])
+def test_plain_gather_with_permuted_bf16_offsets_matches_jax(seed, shape):
+    """Serving hands P1 its offsets as the bf16 [B, 2K, H, W] head output
+    seen through ``permute(0, 2, 3, 1)``; the plain gather reads them as
+    they lie and matches JAX's DCN on the same offsets widened to fp32."""
+    b, h, w, c = shape
+    x, offsets, weights = _problem(seed, b, h, w, c)
+    nchw = torch.from_numpy(offsets).permute(0, 3, 1, 2).contiguous()
+    view = nchw.bfloat16().permute(0, 2, 3, 1)
+    assert not view.is_contiguous() and view.shape == (b, h, w, 18)
+    widened = view.float().numpy()
+    want = jax_dcn(jnp.asarray(x), jnp.asarray(widened), jnp.asarray(weights),
+                   None, groups=4)
+    z = deform_conv.dcn_z(torch.from_numpy(x), torch.from_numpy(weights), 4)
+    got = deform_conv.dcn_gather_plain(z, view).view(b, h, w, c)
+    _close(got, want)
+    plain = deform_conv.deform_conv2d_plain(
+        torch.from_numpy(x), view, torch.from_numpy(weights), groups=4)
+    _close(plain, want)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "permuted nchw", "batch 3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dcn_gather_args(layout, dtype):
+    """The kernel's integer arguments as a pure function: the offsets'
+    dtype flag and strides (reading through them gives the offsets back),
+    the tiles of 2 x 8 pixels and the slices of 256 bytes of a z row."""
+    b, h, w, c = (3, 9, 33, 136) if layout == "batch 3" else (1, 5, 16, 640)
+    rng = np.random.RandomState(22)
+    nhwc = torch.from_numpy(rng.randn(b, h, w, 18).astype(np.float32))
+    if layout == "permuted nchw":
+        off = nhwc.permute(0, 3, 1, 2).contiguous().to(dtype).permute(
+            0, 2, 3, 1)
+    else:
+        off = nhwc.to(dtype)
+    z = torch.zeros(9, b * h * w, c, dtype=dtype)
+    args = deform_conv.dcn_gather_args(z, off)
+    assert args[:7] == (b, h, w, c, 3, int(dtype == torch.bfloat16),
+                        int(dtype == torch.bfloat16))
+    strides = args[7:11]
+    want = {"contiguous": (h * w * 18, w * 18, 18, 1),
+            "permuted nchw": (18 * h * w, w, 1, h * w),
+            "batch 3": (h * w * 18, w * 18, 18, 1)}[layout]
+    assert strides == want
+    flat = torch.as_strided(off, (off.untyped_storage().nbytes()
+                                  // off.element_size(),), (1,), 0)
+    assert torch.equal(torch.as_strided(flat, off.shape, strides,
+                                        off.storage_offset()), off)
+    tiles, slices = args[11:]
+    assert tiles == b * -(-h // deform_conv.TILE_H) * -(-w // deform_conv.TILE_W)
+    assert slices == -(-c * z.element_size() // deform_conv.SLICE_BYTES)
+    fp32 = dtype == torch.float32
+    assert (tiles, slices) == {
+        "contiguous": (6, 10 if fp32 else 5),
+        "permuted nchw": (6, 10 if fp32 else 5),
+        "batch 3": (75, 3 if fp32 else 2)}[layout]
+
+
+def test_dcn_gather_args_refuses_what_the_kernel_does_not_take():
+    z = torch.zeros(9, 2 * 4 * 5, 16)
+    off = torch.zeros(2, 4, 5, 18)
+    with pytest.raises(TypeError):
+        deform_conv.dcn_gather_args(z, off.half())
+    with pytest.raises(TypeError):
+        deform_conv.dcn_gather_args(z.half(), off)
+    with pytest.raises(ValueError):  # 10 fp32 channels: not 16-byte rows
+        deform_conv.dcn_gather_args(z[:, :, :10], off)
+    with pytest.raises(ValueError):  # bf16 rows need C % 8 == 0
+        deform_conv.dcn_gather_args(z[:, :, :12].bfloat16(), off)
+    with pytest.raises(ValueError):  # offsets of another map
+        deform_conv.dcn_gather_args(z, off[:, :3])
+    with pytest.raises(ValueError):  # K = 8 is not a square
+        deform_conv.dcn_gather_args(z[:8], off[..., :16])

@@ -52,3 +52,24 @@ def test_take_along_rows_plain_route_raises_on_a_bad_index():
         with pytest.raises((IndexError, RuntimeError)):
             take_along_rows(torch.from_numpy(feat),
                             torch.full((M,), bad, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("c", [1, 3, 129])
+@pytest.mark.parametrize("layout", ["per_element", "per_row", "flat"])
+def test_take_along_rows_widths_match_jax(layout, c):
+    """The widths the kernel handles with scalar loads (C % 4 != 0) and
+    C = 1, where a per-element and a per-row index coincide."""
+    rng = np.random.RandomState(c)
+    m = 37
+    feat = rng.randn(R, c).astype(np.float32)
+    shape = {"per_element": (m, c), "per_row": (m, 1), "flat": (m,)}[layout]
+    idx = rng.randint(0, R, shape).astype(np.int32)
+    if layout == "flat":
+        want = jnp.take(jnp.asarray(feat), jnp.asarray(idx), axis=0)
+    else:
+        want = jnp.take_along_axis(
+            jnp.asarray(feat), jnp.broadcast_to(jnp.asarray(idx), (m, c)),
+            axis=0)
+    got = take_along_rows(torch.from_numpy(feat), torch.from_numpy(idx))
+    assert got.shape == (m, c)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -473,6 +473,111 @@ def test_dcn_gather_kernel_refuses_what_it_does_not_take(dev):
         deform_conv.dcn_gather_kernel(z, offsets[:, :3])
 
 
+def _dcn_gather_problem(dev, seed, kw, b, h, w, c, dtype, layout):
+    """z [K, B*H*W, C] in ``dtype`` and offsets [B, H, W, 2K] at the
+    probe's scale with whole rows and columns of samples pushed off the
+    map; ``layout`` "fp32" gives them contiguous, "bf16 nchw" as serving
+    hands them: a bf16 [B, 2K, H, W] tensor seen through permute."""
+    k = kw * kw
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.randn(k, b * h * w, c, generator=gen, device=dev).to(dtype)
+    off = torch.randn(b, 2 * k, h, w, generator=gen, device=dev) * 1.5
+    off[:, 0::2, 0] = -(h + 2.0)  # dy: image row 0 samples above the map
+    off[:, 1::2, :, -1] = w + 1.5  # dx: the last column right of it
+    if layout == "fp32":
+        return z, off.permute(0, 2, 3, 1).contiguous()
+    return z, off.bfloat16().permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("layout", ["fp32", "bf16 nchw"])
+@pytest.mark.parametrize("shape", [(2, 7, 9, 16), (1, 5, 37, 136),
+                                   (2, 6, 17, 640)])
+@pytest.mark.parametrize("kw", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dcn_gather_kernel_tiles_slices_and_offsets(dev, dtype, kw, shape,
+                                                    layout):
+    """Tiles cut by H and W, tail channel slices (C 16, 136), B = 2, kw 1-3,
+    fp32 and permuted bf16 offsets, corners off the map; two launches
+    bitwise equal."""
+    z, off = _dcn_gather_problem(dev, 12, kw, *shape, dtype, layout)
+    assert layout == "fp32" or not off.is_contiguous()
+    got = deform_conv.dcn_gather_kernel(z, off)
+    again = deform_conv.dcn_gather_kernel(z, off)
+    want = deform_conv.dcn_gather_plain(z, off)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * float(want.float().abs().max()))
+    assert torch.equal(got, again)
+
+
+def test_dcn_gather_kernel_reads_offsets_in_place(dev):
+    """The permuted bf16 offsets give the output of their fp32 contiguous
+    copy bit for bit (the kernel widens them exactly), with no copy made."""
+    z, off = _dcn_gather_problem(dev, 13, 3, 1, 48, 160, 640, torch.bfloat16,
+                                 "bf16 nchw")
+    got = deform_conv.dcn_gather_kernel(z, off)
+    want = deform_conv.dcn_gather_kernel(z, off.float().contiguous())
+    assert torch.equal(got, want)
+
+
+def test_every_wrapper_counts_one_launch(dev):
+    """Each of the six wrappers launches through ``_build.launch`` and
+    counts exactly one launch per call."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    left, right = _features(dev, 3, 1, 4, 16, 8)
+    pos = disparity_positions(torch.full((1,), 14.0, device=dev), 8)
+    x, wt = _volume(dev, 15, (1, 64, 4, 4, 4, 64))
+    z, off = _dcn_gather_problem(dev, 16, 3, 1, 4, 5, 16, torch.float32,
+                                 "fp32")
+    feat = torch.randn(30, 8, generator=gen, device=dev)
+    idx = torch.randint(0, 30, (12,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    vals = torch.randn(6, 8, generator=gen, device=dev)
+    ranks = torch.tensor([0, 0, 1, 3, 3, 9], dtype=torch.int32, device=dev)
+    order = torch.arange(8, dtype=torch.int32, device=dev)
+    bounds = torch.tensor([0, 1, 1, 2], dtype=torch.int32, device=dev)
+    calls = {
+        "gwc_warp": lambda: gwc.fused_gwc_warp(left, right, pos, 8, 4),
+        "conv3d_s1": lambda: conv3d.conv3d_s1(x, wt),
+        "dcn_gather": lambda: deform_conv.dcn_gather_kernel(z, off),
+        "take_rows": lambda: gather.take_along_rows(feat, idx),
+        "splat_sorted": lambda: voxel_pool.splat_sorted(vals, ranks, 4),
+        "lift_splat_fused": lambda: voxel_pool.lift_splat_fused(
+            torch.rand(8, device=dev), feat[:4], order, bounds, 4, 3),
+    }
+    assert set(calls) == set(_build.SIGNATURES)
+    for name, call in calls.items():
+        before = dict(_build.launch_counts)
+        call()
+        after = dict(_build.launch_counts)
+        changed = {k: after[k] - before.get(k, 0) for k in after
+                   if after[k] != before.get(k, 0)}
+        assert changed == {name: 1}, name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("c", [1, 3, 128, 129])
+@pytest.mark.parametrize("layout", ["per element", "per row", "flat"])
+def test_take_rows_kernel_widths_and_alignment(dev, layout, c, aligned):
+    """Bitwise equal to the plain version for M not a multiple of a
+    block's 8 rows, C 1, 3, 128 and 129, and a feat that starts 4 bytes
+    past a 16-byte boundary (the scalar path)."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    r, m = 300, 1021
+    base = torch.randn(r * c + 1, generator=gen, device=dev)
+    feat = (base[:-1] if aligned else base[1:]).view(r, c)
+    assert (feat.data_ptr() % 16 == 0) == aligned
+    shape = {"per element": (m, c), "per row": (m, 1), "flat": (m,)}[layout]
+    idx = torch.randint(0, r, shape, generator=gen, device=dev,
+                        dtype=torch.int32)
+    got = gather.take_along_rows(feat, idx)
+    want = gather.take_along_rows(feat, idx, use_kernel=False)
+    assert got.shape == (m, c) and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("layout", [(1024, 128), (1024, 1), (1024,)])
 def test_take_rows_kernel_is_exact(dev, layout):
     gen = torch.Generator(device=dev).manual_seed(11)

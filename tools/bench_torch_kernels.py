@@ -1,4 +1,4 @@
-"""Time K1, K2, K3 and K4 of a ``stereoscene_torch`` tree, one bf16 serving
+"""Time K1-K4, P1 and P2 of a ``stereoscene_torch`` tree, one bf16 serving
 request and its bf16 train step.
 
 Compares two versions of the port on one card: run it once per tree, in
@@ -28,6 +28,16 @@ Prints phase 6's line, then one JSON line:
 - ``k2_ms``: K2 on the lifted rows of the group-1 plan (456,704 rows of
   128 fp32), the whole ``splat_sorted`` call, median of 20;
   ``k2_index_add_ms`` ``index_add_`` into an overflow bucket;
+- ``p1_ms``: P1 bf16 at the flagship DepthNet DCN (z [9, 7680, 640], the
+  seeded offset head's fp32 offsets; chip_smoke.py phase 4b), the whole
+  ``dcn_gather_kernel`` call, median of 20; ``p1_serving_ms`` the same
+  with the offsets as serving hands them (bf16, a permuted NCHW view);
+  ``p1_embedding_bag_ms`` the same function as one ``F.embedding_bag``
+  call on the corner tables;
+- ``p2_ms``: P2's whole ``take_along_rows`` call for each index layout
+  (per element, per row, flat; feat [7680, 128], 1,024 rows; phase 4c),
+  median of 20; ``p2_take_along_dim_ms`` ``torch.take_along_dim`` on the
+  same inputs;
 - ``serve_ms``: host ms of a bf16 serving request of ``DetectorConfig()``
   through ``BEVDepthOccupancy.infer`` (chip_smoke.py ``phase_serve``),
   median over ``--requests`` after one warm-up, and its samples;
@@ -109,6 +119,28 @@ def bench_splats(chip_smoke, voxel_pool, x) -> dict:
     return out
 
 
+def bench_gathers(chip_smoke, deform_conv, gather, model, dev) -> dict:
+    """P1 on phase 4b's inputs, P2 on phase 4c's, beside their library
+    calls."""
+    x = chip_smoke.dcn_inputs(model, dev)
+    zb, off = x["zb"], x["offsets"]["seeded"]
+    idx, wgt = deform_conv.dcn_corner_tables(off, *off.shape[1:3])
+    out = {"p1_ms": cuda_ms(lambda: deform_conv.dcn_gather_kernel(zb, off)),
+           "p1_serving_ms": cuda_ms(lambda: deform_conv.dcn_gather_kernel(
+               zb, x["offsets"]["serving"])),
+           "p1_embedding_bag_ms": cuda_ms(chip_smoke.dcn_library(zb, idx,
+                                                                  wgt)),
+           "p2_ms": [], "p2_take_along_dim_ms": []}
+    feat, layouts = chip_smoke.take_rows_inputs(dev)
+    for ids in layouts.values():
+        ids64 = ids.long().reshape(ids.shape[0], -1)
+        out["p2_ms"].append(cuda_ms(lambda: gather.take_along_rows(feat,
+                                                                   ids)))
+        out["p2_take_along_dim_ms"].append(cuda_ms(
+            lambda: torch.take_along_dim(feat, ids64, dim=0)))
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", required=True)
@@ -129,7 +161,13 @@ def main() -> None:
         BEVDepthOccupancy,
         DetectorConfig,
     )
-    from stereoscene_torch.ops import conv3d, gwc, voxel_pool
+    from stereoscene_torch.ops import (
+        conv3d,
+        deform_conv,
+        gather,
+        gwc,
+        voxel_pool,
+    )
     from stereoscene_torch.utils.weights import seeded_init_
 
     if not stereoscene_torch.__file__.startswith(tree):
@@ -174,6 +212,7 @@ def main() -> None:
     seeded_init_(model, 0)
     splat = bench_splats(chip_smoke, voxel_pool, chip_smoke.splat_inputs(
         model, chip_smoke.flagship_batch(cfg, 0, "cpu"), dev))
+    gathers = bench_gathers(chip_smoke, deform_conv, gather, model, dev)
     _, serve_samples = chip_smoke.phase_serve(model, cfg, dev, _build, card,
                                               args.requests)
     del model
@@ -197,7 +236,7 @@ def main() -> None:
     print(json.dumps({
         "label": args.label or tree, "card": card, "k1_ms": k1,
         "k4_ms": k4, "k4_shape_ms": per_shape, "k4_cudnn_ms": cudnn,
-        **splat, "serve_ms": statistics.median(serve_samples),
+        **splat, **gathers, "serve_ms": statistics.median(serve_samples),
         "serve_samples_ms": serve_samples,
         "step_ms": statistics.median(times[1:]), "step_samples_ms": times,
         "losses": losses}), flush=True)

@@ -5,7 +5,9 @@ bf16 and fp32 with the probe-scale, the seeded and the serving-layout
 offsets; ``chip_smoke.take_rows_inputs``: feat [7680, 128] fp32 and the
 three index layouts), calls each C entry of the port's kernel library
 directly with preallocated outputs, 20 calls back to back per CUDA-event
-run, median of 20 runs, so the wrapper's host time is left out. Every
+run, median of 20 runs, so the wrapper's host time is left out (P2's
+bare call is shorter than its launch, so its kernel time comes from
+torch.profiler, as P1's does beside it). Every
 output is checked against the plain version (P1 fp32 1e-5, bf16 2e-2 of
 max|ref|; P2 bitwise). Then times the host's side of each wrapper, part by
 part (microseconds per call, the device queue absorbing the launches), and
@@ -18,6 +20,7 @@ lists the device kernels of one bf16 DCN module forward as serving runs it
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import os
 import subprocess
@@ -60,7 +63,7 @@ def dcn_module_kernels(dcn, x_nchw) -> list:
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
         if us:
-            rows.append((ev.key[:90], ev.count, round(us, 2)))
+            rows.append((ev.key[:140], ev.count, round(us, 2)))
     return rows
 
 
@@ -82,27 +85,34 @@ def main() -> None:
     del model
     result = {"card": card}
 
-    def guard():
-        with torch.cuda.device(dev):
-            pass
+    pydll = ctypes.PyDLL(lib._name)  # the same library, GIL held in calls
+
+    def kernel_us(fn, name: str, calls: int = 20) -> float:
+        """Device us per call of the kernels named ``name`` that ``fn``
+        launches (torch.profiler); 0.0 when it records no device time."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return sum(getattr(ev, "device_time_total", 0.0)
+                   for ev in prof.key_averages() if name in ev.key) / calls
 
     # P1: the bare C entry, then the wrapper's host side by part
     n, c = x["zb"].shape[1:]
-    b, h, w, two_k = x["offsets"]["seeded"].shape
-    kw = int(round((two_k // 2) ** 0.5))
     p1 = {}
     for zname in ("zb", "z32"):
         z = x[zname]
         out = torch.empty(n, c, dtype=z.dtype, device=dev)
-        bf16 = int(z.dtype == torch.bfloat16)
         for oname, off in x["offsets"].items():
-            # this library's entry reads contiguous fp32 offsets
-            off32 = off.float().contiguous()
+            args = deform_conv.dcn_gather_args(z, off)
 
-            def entry(z=z, off32=off32, out=out, bf16=bf16):
+            def entry(z=z, off=off, out=out, args=args):
                 _build.check(lib.stereoscene_dcn_gather(
-                    z.data_ptr(), off32.data_ptr(), out.data_ptr(), n, c, h,
-                    w, kw, bf16, stream), "stereoscene_dcn_gather")
+                    z.data_ptr(), off.data_ptr(), out.data_ptr(), *args,
+                    stream), "stereoscene_dcn_gather")
 
             entry()
             want = deform_conv.dcn_gather_plain(z, off)
@@ -114,30 +124,23 @@ def main() -> None:
             p1[f"{zname}_{oname}_bitwise_repeat"] = bool(torch.equal(first,
                                                                     out))
             p1[f"{zname}_{oname}_device_ms"] = device_ms(entry)
-    serving = x["offsets"]["serving"]
-    p1["serving_offsets_cast_copy_device_ms"] = device_ms(
-        lambda: serving.float().contiguous())
-    zb, seeded = x["zb"], x["offsets"]["seeded"]
+            p1[f"{zname}_{oname}_kernel_us"] = kernel_us(entry, "dcn_gather")
+    zb, seeded, serving = (x["zb"], x["offsets"]["seeded"],
+                           x["offsets"]["serving"])
     out = torch.empty(n, c, dtype=zb.dtype, device=dev)
-    off32 = seeded.float().contiguous()
+    args = deform_conv.dcn_gather_args(zb, serving)
     p1["host_us"] = {
-        "checks": host_us(lambda: (
-            zb.dtype in (torch.float32, torch.bfloat16),
-            seeded.is_floating_point(), zb.dim(), seeded.dim(), zb.shape,
-            seeded.shape, zb.is_cuda and seeded.device == zb.device)),
-        "torch.empty": host_us(lambda: torch.empty(
-            (n, c), dtype=zb.dtype, device=zb.device)),
-        "casts and copies, seeded fp32": host_us(lambda: (
-            deform_conv._aligned(zb, 16),
-            deform_conv._aligned(seeded.float(), 8))),
-        "casts and copies, serving bf16 view": host_us(lambda: (
-            deform_conv._aligned(zb, 16),
-            deform_conv._aligned(serving.float(), 8))),
-        "device guard": host_us(guard),
-        "stream_ptr": host_us(lambda: _build.stream_ptr(dev)),
+        "dcn_gather_args (checks, strides, grid)": host_us(
+            lambda: deform_conv.dcn_gather_args(zb, serving)),
+        "device check": host_us(lambda: (zb.get_device(),
+                                         serving.get_device())),
+        "z contiguous": host_us(lambda: zb.contiguous().data_ptr() % 16),
+        "new_empty": host_us(lambda: zb.new_empty(zb.shape[1:])),
+        "current device": host_us(torch._C._cuda_getDevice),
+        "stream": host_us(lambda: torch._C._cuda_getCurrentRawStream(0)),
         "ctypes call": host_us(lambda: lib.stereoscene_dcn_gather(
-            zb.data_ptr(), off32.data_ptr(), out.data_ptr(), n, c, h, w, kw,
-            1, stream)),
+            zb.data_ptr(), serving.data_ptr(), out.data_ptr(), *args,
+            stream)),
         "wrapper, seeded fp32": host_us(
             lambda: deform_conv.dcn_gather_kernel(zb, seeded)),
         "wrapper, serving bf16 view": host_us(
@@ -175,25 +178,32 @@ def main() -> None:
                 lambda: gather.take_along_rows(feat, idx)),
             "take_along_dim_whole_call_ms": chip_smoke.cuda_ms(
                 lambda: torch.take_along_dim(feat, idx64, dim=0)),
-            "device_ms": device_ms(entry2),
-            "take_along_dim_device_ms": device_ms(
-                lambda: torch.take_along_dim(feat, idx64, dim=0)),
+            "entry_ms": device_ms(entry2),
+            "kernel_us": kernel_us(entry2, "take_rows"),
+            "take_along_dim_kernel_us": kernel_us(
+                lambda: torch.take_along_dim(feat, idx64, dim=0), "gather"),
             "host_us": {
                 "want_kernel": host_us(lambda: want_kernel(
                     "take_along_rows", None, feat, idx)),
                 "checks": host_us(lambda: (
                     feat.dtype != torch.float32 or idx.dtype != torch.int32,
-                    feat.dim(), gather._index_2d(feat, idx), feat.shape,
-                    feat.is_cuda and idx.device == feat.device)),
-                "torch.empty": host_us(lambda: torch.empty(
-                    (m, c2), dtype=feat.dtype, device=feat.device)),
+                    feat.dim(), gather._per_element(feat, idx), feat.shape,
+                    feat.get_device(), idx.get_device())),
+                "new_empty": host_us(lambda: feat.new_empty((m, c2))),
                 "contiguous": host_us(lambda: (feat.contiguous(),
                                                idx.contiguous())),
-                "device guard": host_us(guard),
-                "stream_ptr": host_us(lambda: _build.stream_ptr(dev)),
+                "current device": host_us(torch._C._cuda_getDevice),
+                "stream": host_us(
+                    lambda: torch._C._cuda_getCurrentRawStream(0)),
                 "ctypes call": host_us(lambda: lib.stereoscene_take_rows(
                     feat.data_ptr(), idx.data_ptr(), out2.data_ptr(), m, c2,
                     r, col, stream)),
+                "ctypes call, GIL held (PyDLL)": host_us(
+                    lambda: pydll.stereoscene_take_rows(
+                        ctypes.c_void_p(feat.data_ptr()),
+                        ctypes.c_void_p(idx.data_ptr()),
+                        ctypes.c_void_p(out2.data_ptr()), m, c2, r, col,
+                        ctypes.c_void_p(stream))),
                 "wrapper": host_us(lambda: gather.take_along_rows(feat, idx)),
                 "take_along_dim": host_us(
                     lambda: torch.take_along_dim(feat, idx64, dim=0)),
