@@ -588,13 +588,12 @@ def phase_dcn(model, dev, deform_conv) -> dict:
     out = deform_conv.dcn_gather_kernel(zb, off)
     # the bare C entry, 20 calls back to back: device time without the
     # wrapper's host side
-    bare = {}
+    bare, entry = {}, _build.load_kernels().stereoscene_dcn_gather
+    stream = _build.stream_ptr(dev)
     for name, o in (("seeded", off), ("serving", serving)):
         args = deform_conv.dcn_gather_args(zb, o)
-        stream = _build.stream_ptr(dev)
-        bare[name] = cuda_ms(lambda: _build.check(
-            _build.load_kernels().stereoscene_dcn_gather(
-                zb.data_ptr(), o.data_ptr(), out.data_ptr(), *args, stream),
+        bare[name] = cuda_ms(lambda: _build.check(entry(
+            zb.data_ptr(), o.data_ptr(), out.data_ptr(), *args, stream),
             "stereoscene_dcn_gather"), reps=20) / 20
     # z, the offsets and the output; 36 fp32 multiply-adds per output value
     moved = nbytes(zb, off, out)
