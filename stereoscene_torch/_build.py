@@ -55,8 +55,8 @@ SIGNATURES = {
     # x, w, wk, y, B, D, H, W, Ci, Co, bf16, w_fp32, block_n
     "conv3d_s1": ("stereoscene_conv3d_s1", [_P] * 4 + [_I] * 9),
     # z, offsets, out, B, H, W, C, kw, z_bf16, offsets_bf16, the offsets'
-    # strides (b, h, w, c), tiles
-    "dcn_gather": ("stereoscene_dcn_gather", [_P] * 3 + [_I] * 12),
+    # strides (b, h, w, c), tiles, slices
+    "dcn_gather": ("stereoscene_dcn_gather", [_P] * 3 + [_I] * 13),
     # feat, idx, out, M, C, R, idx_col_stride
     "take_rows": ("stereoscene_take_rows", [_P] * 3 + [_I] * 4),
 }

@@ -24,19 +24,20 @@
 // within a few pixels of it, so the same z rows serve neighbouring pixels.
 //
 // Design, from the four costs of the one-warp-per-row version:
-// - every lane does equal work: a block takes a 2 x 8 tile of pixels, a
-//   half-warp one pixel, and the half-warp walks the pixel's row in slices
-//   of 256 bytes (128 bf16 or 64 fp32 channels), a lane one 16-byte vector
-//   of each; a C that is not a multiple of the slice leaves a tail slice
-//   whose spare lanes stop early. Tiles of 4 x 16 pixels, four in turn a
-//   half-warp, ran slower: the L1 reuse of corner rows they bought was worth
-//   less than the parallelism they cost;
-// - the block derives its tile's corners once and reuses them for every
-//   slice; with the slices on a grid axis of their own (the TPU kernel's
-//   outer axis, meant to keep one slice of z in L2) each slice's block
-//   derived them again, and L2 was not what held the gather back (see
-//   PERF.md). At the flagship the 480 tiles fit the card's resident
-//   blocks (4 an SM) in one wave;
+// - channel slices are the grid's outer axis (blockIdx.y), as the TPU
+//   kernel's grid ran 128-lane slices outermost: a block takes one 256-byte
+//   slice of z's rows (128 bf16 or 64 fp32 channels) for a 2 x 8 tile of
+//   pixels, so the blocks resident together read one slice of z (17.7 MB
+//   of bf16 for all 9 taps), which L2 holds. Blocks that walked all the
+//   slices of their tile, deriving its corners once, ran bf16 faster but
+//   fp32 slower (480 blocks at 3 an SM fill 1.2 waves; PERF.md);
+// - every lane does equal work: a half-warp takes one pixel, a lane one
+//   16-byte vector of its slice, so each thread gathers exactly one pixel's
+//   samples and no thread waits on a chain of pixels (tiles of 4 x 16
+//   pixels, four in turn a half-warp, ran slower: the L1 reuse of corner
+//   rows they bought was worth less than the parallelism they cost); a C
+//   that is not a multiple of the slice leaves a tail slice whose spare
+//   lanes stop early;
 // - kw is a template parameter, so the 4 * K loads of a pixel unroll and a
 //   lane issues them in batches of 8 (bf16) or 12 (fp32) before their FMAs,
 //   the batch and the register cap that keep 4 (bf16) or 3 (fp32) blocks
@@ -53,6 +54,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kLanes = 16;  // a half-warp per pixel, 16 bytes a lane
+constexpr int kSliceBytes = 16 * kLanes;  // of a z row, a block's slice
 constexpr int kTileH = 2;  // image rows of a block's pixel tile
 constexpr int kTileW = 8;  // image columns of it
 constexpr int kTile = kTileH * kTileW;
@@ -116,8 +118,8 @@ __device__ __forceinline__ float offset_value(const __nv_bfloat16* p) {
 }
 
 // z [K, N, C] in T, offsets [B, H, W, 2K] in O with element strides
-// (sb, sh, sw, sc), out [N, C] in T; N = B * H * W. Grid: B * tiles of
-// kTileH x kTileW pixels.
+// (sb, sh, sw, sc), out [N, C] in T; N = B * H * W. Grid: (B * tiles of
+// kTileH x kTileW pixels, slices of kSliceBytes of a row).
 template <typename T, typename O, int KW>
 __global__ void __launch_bounds__(kThreads, Vec<T>::min_blocks)
     dcn_gather_kernel(const T* __restrict__ z, const O* __restrict__ off,
@@ -171,54 +173,51 @@ __global__ void __launch_bounds__(kThreads, Vec<T>::min_blocks)
   }
   __syncthreads();
 
-  // a half-warp per pixel, walking its row a slice at a time, a lane per
-  // 16 bytes of each slice
+  // a half-warp per pixel, a lane per 16 bytes of the block's slice
   const int p = threadIdx.x / kLanes;
   const int y = y_base + p / kTileW;
   const int x = x_base + p % kTileW;
-  if (y >= H || x >= W) return;  // off the map
+  const int c0 = (blockIdx.y * kLanes + threadIdx.x % kLanes) * V;
+  if (y >= H || x >= W || c0 >= C) return;  // off the map, or a tail slice
   const size_t tap_stride = (size_t)N * C;
+  const T* zc = z + c0;
   const int2* corner = s_corner[p];
-  T* orow = out + ((size_t)b * hw + (size_t)y * W + x) * C;
-  for (int c0 = (threadIdx.x % kLanes) * V; c0 < C; c0 += kLanes * V) {
-    const T* zc = z + c0;
-    float acc[V];
+  float acc[V];
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[e] = 0.f;
+  for (int e = 0; e < V; ++e) acc[e] = 0.f;
 #pragma unroll
-    for (int s0 = 0; s0 < kSamples; s0 += kBatch) {
-      uint4 raw[kBatch];
-      float wgt[kBatch];
+  for (int s0 = 0; s0 < kSamples; s0 += kBatch) {
+    uint4 raw[kBatch];
+    float wgt[kBatch];
 #pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        if (s0 + j < kSamples) {
-          const int2 e = corner[s0 + j];
-          wgt[j] = __int_as_float(e.y);
-          raw[j] = __ldg(reinterpret_cast<const uint4*>(
-              zc + (size_t)((s0 + j) / kCorners) * tap_stride +
-              (size_t)e.x * C));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        if (s0 + j < kSamples) {
-          float v[V];
-          Vec<T>::widen(raw[j], v);
-#pragma unroll
-          for (int e = 0; e < V; ++e) acc[e] = fmaf(wgt[j], v[e], acc[e]);
-        }
+    for (int j = 0; j < kBatch; ++j) {
+      if (s0 + j < kSamples) {
+        const int2 e = corner[s0 + j];
+        wgt[j] = __int_as_float(e.y);
+        raw[j] = __ldg(reinterpret_cast<const uint4*>(
+            zc + (size_t)((s0 + j) / kCorners) * tap_stride +
+            (size_t)e.x * C));
       }
     }
-    Vec<T>::store(orow + c0, acc);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (s0 + j < kSamples) {
+        float v[V];
+        Vec<T>::widen(raw[j], v);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] = fmaf(wgt[j], v[e], acc[e]);
+      }
+    }
   }
+  Vec<T>::store(out + ((size_t)b * hw + (size_t)y * W + x) * C + c0, acc);
 }
 
 template <typename T, typename O, int KW>
 cudaError_t launch(const void* z, const void* off, void* out, int N, int H,
-                   int W, int C, int tiles, int tiles_w, int sb, int sh,
-                   int sw, int sc, cudaStream_t stream) {
+                   int W, int C, int tiles, int slices, int tiles_w, int sb,
+                   int sh, int sw, int sc, cudaStream_t stream) {
   const int tiles_per_image = tiles_w * ((H + kTileH - 1) / kTileH);
-  dcn_gather_kernel<T, O, KW><<<tiles, kThreads, 0, stream>>>(
+  dcn_gather_kernel<T, O, KW><<<dim3(tiles, slices), kThreads, 0, stream>>>(
       static_cast<const T*>(z), static_cast<const O*>(off),
       static_cast<T*>(out), N, H, W, C, tiles_w, tiles_per_image, sb, sh, sw,
       sc);
@@ -227,18 +226,19 @@ cudaError_t launch(const void* z, const void* off, void* out, int N, int H,
 
 template <typename T, typename O>
 cudaError_t launch_kw(int kw, const void* z, const void* off, void* out,
-                      int N, int H, int W, int C, int tiles, int tiles_w,
-                      int sb, int sh, int sw, int sc, cudaStream_t stream) {
+                      int N, int H, int W, int C, int tiles, int slices,
+                      int tiles_w, int sb, int sh, int sw, int sc,
+                      cudaStream_t stream) {
   switch (kw) {
     case 1:
-      return launch<T, O, 1>(z, off, out, N, H, W, C, tiles, tiles_w, sb, sh,
-                             sw, sc, stream);
+      return launch<T, O, 1>(z, off, out, N, H, W, C, tiles, slices, tiles_w,
+                             sb, sh, sw, sc, stream);
     case 2:
-      return launch<T, O, 2>(z, off, out, N, H, W, C, tiles, tiles_w, sb, sh,
-                             sw, sc, stream);
+      return launch<T, O, 2>(z, off, out, N, H, W, C, tiles, slices, tiles_w,
+                             sb, sh, sw, sc, stream);
     default:
-      return launch<T, O, 3>(z, off, out, N, H, W, C, tiles, tiles_w, sb, sh,
-                             sw, sc, stream);
+      return launch<T, O, 3>(z, off, out, N, H, W, C, tiles, slices, tiles_w,
+                             sb, sh, sw, sc, stream);
   }
 }
 
@@ -247,15 +247,17 @@ cudaError_t launch_kw(int kw, const void* z, const void* off, void* out,
 // z [kw * kw, B*H*W, C] (bf16 when z_bf16, else fp32; 16-byte aligned, C a
 // multiple of 16 bytes), offsets [B, H, W, 2 * kw * kw] (bf16 when
 // offsets_bf16, else fp32) at element strides (s_b, s_h, s_w, s_c), out
-// [B*H*W, C] in z's dtype. tiles = B * ceil(H / 2) * ceil(W / 8) is the
-// grid, as ops/deform_conv.py: dcn_gather_args computes it; any other value
-// is refused.
+// [B*H*W, C] in z's dtype. tiles = B * ceil(H / 2) * ceil(W / 8) and
+// slices = ceil(C * element size / 256) are the grid, as
+// ops/deform_conv.py: dcn_gather_args computes them; any other value is
+// refused.
 extern "C" int stereoscene_dcn_gather(const void* z, const void* offsets,
                                       void* out, int B, int H, int W, int C,
                                       int kw, int z_bf16, int offsets_bf16,
                                       int s_b, int s_h, int s_w, int s_c,
-                                      int tiles, void* stream) {
+                                      int tiles, int slices, void* stream) {
   const int vec = z_bf16 ? Vec<__nv_bfloat16>::n : Vec<float>::n;
+  const int slice = kSliceBytes / (z_bf16 ? 2 : 4);  // channels of a slice
   if (kw < 1 || kw > 3 || B < 1 || H < 1 || W < 1 || C < 1 || C % vec ||
       s_b < 0 || s_h < 0 || s_w < 0 || s_c < 0 ||
       (long long)B * H * W > INT_MAX ||
@@ -263,7 +265,10 @@ extern "C" int stereoscene_dcn_gather(const void* z, const void* offsets,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int tiles_w = (W + kTileW - 1) / kTileW;
-  if (tiles != (long long)B * tiles_w * ((H + kTileH - 1) / kTileH)) {
+  const long long want_tiles =
+      (long long)B * tiles_w * ((H + kTileH - 1) / kTileH);
+  if (tiles != want_tiles ||
+      slices != (C + slice - 1) / slice || slices > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int N = B * H * W;
@@ -272,19 +277,19 @@ extern "C" int stereoscene_dcn_gather(const void* z, const void* offsets,
   if (z_bf16) {
     err = offsets_bf16
               ? launch_kw<__nv_bfloat16, __nv_bfloat16>(
-                    kw, z, offsets, out, N, H, W, C, tiles, tiles_w, s_b, s_h,
-                    s_w, s_c, s)
+                    kw, z, offsets, out, N, H, W, C, tiles, slices, tiles_w,
+                    s_b, s_h, s_w, s_c, s)
               : launch_kw<__nv_bfloat16, float>(kw, z, offsets, out, N, H, W,
-                                                C, tiles, tiles_w, s_b, s_h,
-                                                s_w, s_c, s);
+                                                C, tiles, slices, tiles_w,
+                                                s_b, s_h, s_w, s_c, s);
   } else {
     err = offsets_bf16
               ? launch_kw<float, __nv_bfloat16>(kw, z, offsets, out, N, H, W,
-                                                C, tiles, tiles_w, s_b, s_h,
-                                                s_w, s_c, s)
+                                                C, tiles, slices, tiles_w,
+                                                s_b, s_h, s_w, s_c, s)
               : launch_kw<float, float>(kw, z, offsets, out, N, H, W, C,
-                                        tiles, tiles_w, s_b, s_h, s_w, s_c,
-                                        s);
+                                        tiles, slices, tiles_w, s_b, s_h,
+                                        s_w, s_c, s);
   }
   return static_cast<int>(err);
 }

@@ -172,8 +172,9 @@ def dcn_gather_plain(z: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     return out.to(z.dtype)
 
 
-# csrc/dcn.cu: a block gathers a tile of 2 x 8 pixels (kTileH x kTileW)
-TILE_H, TILE_W = 2, 8
+# csrc/dcn.cu: a block gathers 256 bytes of each z row (kSliceBytes: 128
+# bf16 or 64 fp32 channels) for a tile of 2 x 8 pixels (kTileH x kTileW)
+TILE_H, TILE_W, SLICE_BYTES = 2, 8, 256
 _INT32_MAX = 2**31 - 1
 
 
@@ -182,7 +183,8 @@ def dcn_gather_args(z: torch.Tensor, offsets: torch.Tensor) -> tuple:
     [K, B*H*W, C] and offsets [B, H, W, 2*K], read where they lie: (B, H,
     W, C, kw, z_bf16, offsets_bf16, the offsets' strides in elements (b,
     h, w, c), the grid's pixel tiles B * ceil(H / TILE_H) * ceil(W /
-    TILE_W)). Raises on what
+    TILE_W), its channel slices ceil(C * element size / SLICE_BYTES)).
+    Raises on what
     the kernel does not take: z not fp32 / bf16, offsets not fp32 / bf16,
     C not a multiple of 16 bytes' worth, K not a square <= 9, mismatched
     shapes or sizes past int32."""
@@ -211,7 +213,8 @@ def dcn_gather_args(z: torch.Tensor, offsets: torch.Tensor) -> tuple:
                          f"{strides} past int32")
     return (b, h, w, c, kw, int(z.dtype == torch.bfloat16),
             int(offsets.dtype == torch.bfloat16), *strides,
-            b * -(-h // TILE_H) * -(-w // TILE_W))
+            b * -(-h // TILE_H) * -(-w // TILE_W),
+            -(-c * z.element_size() // SLICE_BYTES))
 
 
 def dcn_gather_kernel(z: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:

@@ -179,8 +179,8 @@ def test_plain_gather_with_permuted_bf16_offsets_matches_jax(seed, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dcn_gather_args(layout, dtype):
     """The kernel's integer arguments as a pure function: the offsets'
-    dtype flag and strides (reading through them gives the offsets back)
-    and the grid's tiles of 2 x 8 pixels."""
+    dtype flag and strides (reading through them gives the offsets back),
+    the tiles of 2 x 8 pixels and the slices of 256 bytes of a z row."""
     b, h, w, c = (3, 9, 33, 136) if layout == "batch 3" else (1, 5, 16, 640)
     rng = np.random.RandomState(22)
     nhwc = torch.from_numpy(rng.randn(b, h, w, 18).astype(np.float32))
@@ -202,11 +202,15 @@ def test_dcn_gather_args(layout, dtype):
                                   // off.element_size(),), (1,), 0)
     assert torch.equal(torch.as_strided(flat, off.shape, strides,
                                         off.storage_offset()), off)
-    (tiles,) = args[11:]
+    tiles, slices = args[11:]
     tile_h, tile_w = deform_conv.TILE_H, deform_conv.TILE_W
     assert tiles == b * -(-h // tile_h) * -(-w // tile_w)
-    assert tiles == {"contiguous": 6, "permuted nchw": 6,
-                     "batch 3": 75}[layout]
+    assert slices == -(-c * z.element_size() // deform_conv.SLICE_BYTES)
+    fp32 = dtype == torch.float32
+    assert (tiles, slices) == {
+        "contiguous": (6, 10 if fp32 else 5),
+        "permuted nchw": (6, 10 if fp32 else 5),
+        "batch 3": (75, 3 if fp32 else 2)}[layout]
 
 
 def test_dcn_gather_args_refuses_what_the_kernel_does_not_take():
