@@ -184,10 +184,9 @@ def dcn_gather_args(z: torch.Tensor, offsets: torch.Tensor) -> tuple:
     W, C, kw, z_bf16, offsets_bf16, the offsets' strides in elements (b,
     h, w, c), the grid's pixel tiles B * ceil(H / TILE_H) * ceil(W /
     TILE_W), its channel slices ceil(C * element size / SLICE_BYTES)).
-    Raises on what
-    the kernel does not take: z not fp32 / bf16, offsets not fp32 / bf16,
-    C not a multiple of 16 bytes' worth, K not a square <= 9, mismatched
-    shapes or sizes past int32."""
+    Raises on what the kernel does not take: z not fp32 / bf16, offsets not
+    fp32 / bf16, C not a multiple of 16 bytes' worth, K not a square <= 9,
+    mismatched shapes or sizes past int32."""
     if z.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dcn_gather kernel takes fp32/bf16 z, got {z.dtype}")
     if offsets.dtype not in (torch.float32, torch.bfloat16):
