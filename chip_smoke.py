@@ -55,18 +55,29 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    and every gradient leaf within 2% of its scale (floor 1e-4 of the global
    scale); (b) six bf16 steps with the kernels: finite, falling losses, ms
    per step and peak memory;
-8. eval: a full-size SemanticKITTI tree of four seeded frames (376x1241
-   stereo PNGs, calib.txt, voxel labels [256, 256, 32] with ignore labels)
-   and a checkpoint of the seeded fp32 flagship, written under TMPDIR; the
+8. eval: a full-size SemanticKITTI tree (four seeded val frames and four
+   train frames: 376x1241 stereo PNGs, calib.txt, voxel labels
+   [256, 256, 32] with ignore labels, a 120,000-point velodyne sweep and
+   its lidarseg labels per frame) and a checkpoint of the seeded fp32
+   flagship, written under TMPDIR; the
    eval CLI ``stereoscene_torch.tools.test.main`` on the card writes the
    ``.label`` / ``.npy`` predictions, then scores; the same checkpoint
    through ``engine.loop.run_evaluation`` without the kernels: predictions
    agree on at least 99.99% of voxels, every ``semkitti_*`` metric within
    0.01 points, each ``.label`` file is ``inv_map`` of its ``.npy``;
-   frames per second and ``eval_time_s``, PNG decoding included.
+   frames per second and ``eval_time_s``, PNG decoding included;
+9. training from data: the train CLI ``stereoscene_torch.tools.train.main``
+   on the card with the flagship config (B = 2, bf16, two epochs of the
+   four train frames, the LiDAR depth branch on), then its eval after
+   epoch 2 over the four val frames: the gt_depth pixels per eye and one
+   frame's LiDAR products' host ms, every step's loss terms (all finite,
+   the depth term nonzero), ms per step, the peak memory, the steps left in
+   ``ckpts/``, the launches (K1, P1 and K3 at least once); then the eval
+   CLI on ``ckpts/`` gives the loop's eval metrics within 0.01 points.
 
 Then one JSON line with each kernel (its launches in the serving, bf16
-training and eval runs, each counted from 0 just before its run, its
+training, eval and train CLI runs, each counted from 0 just before its
+run, its
 error, its times and its bound from phases 2-4c; the
 bound is the larger of the bytes it must move over 3.35 TB/s and its
 operations over the H100 SXM datasheet's peak for their type, 989 TFLOP/s
@@ -92,6 +103,9 @@ FX, BASELINE = 707.0, 0.54  # bench.py:55-82 flagship calibration
 N_REQUESTS = 3
 N_TRAIN_STEPS = 6
 N_EVAL_FRAMES = 4
+N_TRAIN_FRAMES = 4  # sequence 00 of the phase 8-9 tree
+N_LIDAR_POINTS = 120_000  # about one HDL-64 sweep
+CLI_EPOCHS = 2  # the flagship config evaluates every 2 epochs
 LABEL_SHAPE = (256, 256, 32)
 EVAL_CONFIG = "stereoscene_semantickitti.py"  # the flagship's config file
 # H100 SXM datasheet peaks (dense, without sparsity)
@@ -690,49 +704,87 @@ def phase_take_rows(dev, gather) -> dict:
     return dict(max_abs_err=0.0, **total)
 
 
-def write_semkitti_tree(root: str, n_frames: int) -> tuple:
+def lidar_scan(rng, n: int, raw_ids) -> tuple:
+    """A seeded velodyne sweep of ``n`` points (x forward, y left, z up,
+    reflectance; float32 [n, 4]) and its lidarseg labels (uint32: a raw id
+    of ``raw_ids`` below an instance id). 80% lie in the camera's view (3-58
+    m ahead, |y| < 0.85 x, |z| < 0.25 x); 10% repeat some of those 1.05-1.6x
+    farther along the same ray, so several points land on one pixel; 10%
+    lie anywhere within 60 m, behind the car and outside the image
+    included."""
+    n_dup = n_out = n // 10
+    n_in = n - n_dup - n_out
+    x = rng.uniform(3.0, 58.0, n_in)
+    seen = np.stack([x, x * rng.uniform(-0.85, 0.85, n_in),
+                     x * rng.uniform(-0.25, 0.25, n_in)], axis=1)
+    dup = seen[rng.integers(0, n_in, n_dup)] * rng.uniform(1.05, 1.6,
+                                                           (n_dup, 1))
+    out = np.stack([rng.uniform(-60.0, 60.0, n_out),
+                    rng.uniform(-60.0, 60.0, n_out),
+                    rng.uniform(-3.0, 3.0, n_out)], axis=1)
+    xyz = np.concatenate([seen, dup, out])
+    pts = np.concatenate([xyz, rng.random((n, 1))], axis=1)
+    labels = (rng.choice(raw_ids, n).astype(np.uint32)
+              | (rng.integers(0, 64, n).astype(np.uint32) << 16))
+    return pts.astype(np.float32), labels
+
+
+def write_semkitti_tree(root: str, n_frames: int, n_train: int) -> tuple:
     """A SemanticKITTI tree at full size under ``root``: sequence 08 (the
-    val split) with ``n_frames`` seeded 376x1241 stereo PNG pairs, a
-    calib.txt of the flagship calibration (fx 707, baseline 0.54 m, the
-    velodyne axes of bench.py's rotation), ``voxels/*.bin`` frame markers
-    and voxel labels [256, 256, 32] uint8 (60% empty, 10% ignore 255)
-    -> (data_root, ann_file)."""
+    val split) with ``n_frames`` frames and sequence 00 (train) with
+    ``n_train``: seeded 376x1241 stereo PNG pairs, a calib.txt of the
+    flagship calibration (fx 707, baseline 0.54 m, the velodyne axes of
+    bench.py's rotation), ``voxels/*.bin`` frame markers, voxel labels
+    [256, 256, 32] uint8 (60% empty, 10% ignore 255), and per frame a
+    ``velodyne/*.bin`` sweep of ``N_LIDAR_POINTS`` points (an HDL-64
+    sweep's size) with its ``labels/*.label`` lidarseg file
+    -> (data_root, ann_file, lidar_root), the lidar root also the lidarseg
+    root."""
     from PIL import Image
 
-    seq = os.path.join(root, "dataset", "sequences", "08")
+    from stereoscene_torch.data.labels import LEARNING_MAP
+
+    lidar_root = os.path.join(root, "dataset", "sequences")
     ann = os.path.join(root, "labels")
-    for sub in ("image_2", "image_3", "voxels"):
-        os.makedirs(os.path.join(seq, sub))
-    os.makedirs(os.path.join(ann, "08"))
     p2 = f"{FX} 0 620.5 0 0 {FX} 188.0 0 0 0 1 0"
     p3 = f"{FX} 0 620.5 {-FX * BASELINE} 0 {FX} 188.0 0 0 0 1 0"
-    with open(os.path.join(seq, "calib.txt"), "w") as f:
-        f.write(f"P0: {p2}\nP1: {p3}\nP2: {p2}\nP3: {p3}\n"
-                "Tr: 0 -1 0 0 0 0 -1 0 1 0 0 0\n")
     rng = np.random.default_rng(SEED + 100)
     ramp = np.linspace(0, 160, 1241)[None, :, None]
-    for i in range(n_frames):
-        fid = f"{i:06d}"
-        for cam in ("image_2", "image_3"):
-            img = ramp + rng.integers(0, 96, (376, 1241, 3))
-            Image.fromarray(img.astype(np.uint8)).save(
-                os.path.join(seq, cam, fid + ".png"))
-        with open(os.path.join(seq, "voxels", fid + ".bin"), "wb") as f:
-            f.write(b"\0")
-        occ = rng.integers(1, 20, LABEL_SHAPE)
-        occ[rng.random(LABEL_SHAPE) < 0.6] = 0
-        occ[rng.random(LABEL_SHAPE) < 0.1] = 255
-        np.save(os.path.join(ann, "08", f"{fid}_1_1.npy"),
-                occ.astype(np.uint8))
-    return root, ann
+    for seq_id, count in (("08", n_frames), ("00", n_train)):
+        seq = os.path.join(lidar_root, seq_id)
+        for sub in ("image_2", "image_3", "voxels", "velodyne", "labels"):
+            os.makedirs(os.path.join(seq, sub))
+        os.makedirs(os.path.join(ann, seq_id))
+        with open(os.path.join(seq, "calib.txt"), "w") as f:
+            f.write(f"P0: {p2}\nP1: {p3}\nP2: {p2}\nP3: {p3}\n"
+                    "Tr: 0 -1 0 0 0 0 -1 0 1 0 0 0\n")
+        for i in range(count):
+            fid = f"{i:06d}"
+            for cam in ("image_2", "image_3"):
+                img = ramp + rng.integers(0, 96, (376, 1241, 3))
+                Image.fromarray(img.astype(np.uint8)).save(
+                    os.path.join(seq, cam, fid + ".png"))
+            with open(os.path.join(seq, "voxels", fid + ".bin"), "wb") as f:
+                f.write(b"\0")
+            occ = rng.integers(1, 20, LABEL_SHAPE)
+            occ[rng.random(LABEL_SHAPE) < 0.6] = 0
+            occ[rng.random(LABEL_SHAPE) < 0.1] = 255
+            np.save(os.path.join(ann, seq_id, f"{fid}_1_1.npy"),
+                    occ.astype(np.uint8))
+            pts, labels = lidar_scan(rng, N_LIDAR_POINTS,
+                                     sorted(LEARNING_MAP))
+            pts.tofile(os.path.join(seq, "velodyne", fid + ".bin"))
+            labels.tofile(os.path.join(seq, "labels", fid + ".label"))
+    return root, ann, lidar_root
 
 
-def phase_eval(dev, build, card: str, seeded_init_) -> dict:
+def phase_eval(dev, build, card: str, seeded_init_, tmp: str,
+               tree: tuple) -> dict:
     """The eval CLI (``stereoscene_torch.tools.test.main``) on the card
-    over a full-size SemanticKITTI tree, with a seeded checkpoint: once
-    writing predictions, once scoring; then the same checkpoint through
-    ``run_evaluation`` without the kernels. Returns the launches of the
-    scoring run."""
+    over the full-size SemanticKITTI ``tree``, with a seeded checkpoint
+    written under ``tmp``: once writing predictions, once scoring; then the
+    same checkpoint through ``run_evaluation`` without the kernels. Returns
+    the launches of the scoring run."""
     import stereoscene_torch
     from stereoscene_torch.config import Config, merge_from_options
     from stereoscene_torch.data.labels import inv_map
@@ -748,54 +800,53 @@ def phase_eval(dev, build, card: str, seeded_init_) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     config = os.path.join(os.path.dirname(stereoscene_torch.__file__),
                           "configs", EVAL_CONFIG)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        root, ann = write_semkitti_tree(tmp, N_EVAL_FRAMES)
-        opts = [f"data.val.data_root={root}", f"data.val.ann_file={ann}"]
-        cfg = Config.fromfile(config)
-        merge_from_options(cfg, opts)
-        model = BEVDepthOccupancy(DetectorConfig.from_config(cfg),
-                                  device=dev, label_shape=LABEL_SHAPE)
-        seeded_init_(model, SEED)
-        ckpt = os.path.join(tmp, "seeded.pth")
-        torch.save({"state_dict": model.state_dict()}, ckpt)
-        setup_s = time.perf_counter() - t0
-        argv = [config, "--checkpoint", ckpt, "--device", dev.type]
-        sub, pred_dir = os.path.join(tmp, "submission"), os.path.join(
-            tmp, "pred")
-        cli.main(argv + ["--submission-dir", sub, "--save-pred-dir",
-                         pred_dir, "--cfg-options", *opts])
-        build.launch_counts.clear()
-        res_k = cli.main(argv + ["--cfg-options", *opts])
-        launches = dict(build.launch_counts)
+    t0 = time.perf_counter()
+    root, ann, _ = tree
+    opts = [f"data.val.data_root={root}", f"data.val.ann_file={ann}"]
+    cfg = Config.fromfile(config)
+    merge_from_options(cfg, opts)
+    model = BEVDepthOccupancy(DetectorConfig.from_config(cfg),
+                              device=dev, label_shape=LABEL_SHAPE)
+    seeded_init_(model, SEED)
+    ckpt = os.path.join(tmp, "seeded.pth")
+    torch.save({"state_dict": model.state_dict()}, ckpt)
+    setup_s = time.perf_counter() - t0
+    argv = [config, "--checkpoint", ckpt, "--device", dev.type]
+    sub, pred_dir = os.path.join(tmp, "submission"), os.path.join(
+        tmp, "pred")
+    cli.main(argv + ["--submission-dir", sub, "--save-pred-dir",
+                     pred_dir, "--cfg-options", *opts])
+    build.launch_counts.clear()
+    res_k = cli.main(argv + ["--cfg-options", *opts])
+    launches = dict(build.launch_counts)
 
-        index, loader = cli.make_loader(cfg, "val", 1)
-        eval_step, preds = make_eval_step(LABEL_SHAPE), []
+    index, loader = cli.make_loader(cfg, "val", 1)
+    eval_step, preds = make_eval_step(LABEL_SHAPE), []
 
-        def step(model, batch, state, use_kernel=None):
-            pred, state = eval_step(model, batch, state, use_kernel)
-            preds.append(pred.to(torch.uint8).cpu().numpy())
-            return pred, state
+    def step(model, batch, state, use_kernel=None):
+        pred, state = eval_step(model, batch, state, use_kernel)
+        preds.append(pred.to(torch.uint8).cpu().numpy())
+        return pred, state
 
-        build.launch_counts.clear()
-        res_p = run_evaluation(model, step, loader, use_kernel=False,
-                               progress=False)
-        if build.launch_counts:
-            raise AssertionError(f"eval without kernels launched "
-                                 f"{dict(build.launch_counts)}")
-        pred_p = np.concatenate(preds)
-        lut, pred_k = inv_map(), []
-        for frame in index.frames:
-            name = f"{frame.sequence}_{frame.frame_id}"
-            pred_k.append(np.load(os.path.join(pred_dir, name + ".npy")))
-            raw = np.fromfile(os.path.join(
-                sub, "sequences", frame.sequence, "predictions",
-                frame.frame_id + ".label"), np.uint16)
-            if raw.size != int(np.prod(LABEL_SHAPE)) or not np.array_equal(
-                    raw, lut[pred_k[-1].reshape(-1)]):
-                raise AssertionError(f"eval .label file of {name}: "
-                                     f"{raw.size} values, not the inv_map "
-                                     "of its .npy prediction")
+    build.launch_counts.clear()
+    res_p = run_evaluation(model, step, loader, use_kernel=False,
+                           progress=False)
+    if build.launch_counts:
+        raise AssertionError(f"eval without kernels launched "
+                             f"{dict(build.launch_counts)}")
+    pred_p = np.concatenate(preds)
+    lut, pred_k = inv_map(), []
+    for frame in index.frames:
+        name = f"{frame.sequence}_{frame.frame_id}"
+        pred_k.append(np.load(os.path.join(pred_dir, name + ".npy")))
+        raw = np.fromfile(os.path.join(
+            sub, "sequences", frame.sequence, "predictions",
+            frame.frame_id + ".label"), np.uint16)
+        if raw.size != int(np.prod(LABEL_SHAPE)) or not np.array_equal(
+                raw, lut[pred_k[-1].reshape(-1)]):
+            raise AssertionError(f"eval .label file of {name}: "
+                                 f"{raw.size} values, not the inv_map "
+                                 "of its .npy prediction")
     pred_k = np.stack(pred_k)
     if res_k["eval_frames"] != N_EVAL_FRAMES or pred_k.shape != (
             N_EVAL_FRAMES,) + LABEL_SHAPE or pred_p.shape != pred_k.shape:
@@ -813,7 +864,7 @@ def phase_eval(dev, build, card: str, seeded_init_) -> dict:
     keys = ("semkitti_SC_IoU", "semkitti_SSC_mIoU")
     print(f"phase 8 fp32 eval CLI on {card}: {N_EVAL_FRAMES} frames of "
           f"376x1241 stereo PNGs -> {cfg['data_config']['input_size']}, "
-          f"gt_occ {list(LABEL_SHAPE)} (tree and checkpoint written in "
+          f"gt_occ {list(LABEL_SHAPE)} (checkpoint written in "
           f"{setup_s:.1f} s); tools.test.main with the kernels eval_time_s "
           f"{res_k['eval_time_s']:.3f} "
           f"({N_EVAL_FRAMES / res_k['eval_time_s']:.3f} frames/s), "
@@ -824,6 +875,156 @@ def phase_eval(dev, build, card: str, seeded_init_) -> dict:
           f"difference {max(diffs.values()):.4f} points; {N_EVAL_FRAMES} "
           f".label files equal to inv_map of the .npy predictions; launches "
           f"{launches}", flush=True)
+    return launches
+
+
+def phase_train_cli(dev, build, card: str, tmp: str, tree: tuple) -> dict:
+    """The train CLI (``stereoscene_torch.tools.train.main``) on the card:
+    the flagship config at its ``samples_per_gpu`` (B = 2) in bf16 for
+    ``CLI_EPOCHS`` epochs over the tree's train frames with LiDAR depth,
+    then the loop's eval over the val frames; then the eval CLI on the
+    run's ``ckpts/``. Returns the launches of the training run, its eval
+    included."""
+    import stereoscene_torch
+    from stereoscene_torch.config import Config, merge_from_options
+    from stereoscene_torch.data import (
+        PipelineConfig,
+        SemanticKittiIndex,
+        SemanticKittiPipeline,
+    )
+    from stereoscene_torch.engine.checkpoint import CheckpointManager
+    from stereoscene_torch.engine.loop import to_device
+    from stereoscene_torch.tools import test as test_cli
+    from stereoscene_torch.tools import train as train_cli
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = os.path.join(os.path.dirname(stereoscene_torch.__file__),
+                          "configs", EVAL_CONFIG)
+    root, ann, lidar_root = tree
+    val_opts = [f"data.val.data_root={root}", f"data.val.ann_file={ann}"]
+    opts = val_opts + [
+        f"data.train.data_root={root}", f"data.train.ann_file={ann}",
+        f"lidar_root={lidar_root}", f"lidarseg_root={lidar_root}"]
+    cfg = Config.fromfile(config)
+    merge_from_options(cfg, list(opts))
+
+    # one train frame's LiDAR products, as the CLI's pipeline makes them
+    dcfg = cfg["data_config"]
+    pipe = SemanticKittiPipeline(PipelineConfig(
+        input_size=tuple(dcfg["input_size"]), resize=tuple(dcfg["resize"]),
+        rot=tuple(dcfg["rot"]), flip=dcfg["flip"],
+        crop_h=tuple(dcfg["crop_h"]), is_train=True, load_lidar_depth=True,
+        point_cloud_range=tuple(cfg["point_cloud_range"])))
+    frame = SemanticKittiIndex(data_root=root, ann_file=ann, split="train",
+                               lidar_root=lidar_root,
+                               lidarseg_root=lidar_root).frames[0]
+    sample = pipe(frame, seed=SEED)
+    hits = [int((sample["gt_depth"][eye] > 0).sum()) for eye in range(2)]
+    lidar_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pipe._lidar_products(frame, sample)
+        lidar_ms.append((time.perf_counter() - t0) * 1e3)
+    if min(hits) < N_LIDAR_POINTS // 2:
+        raise AssertionError(f"LiDAR products: gt_depth pixels per eye "
+                             f"{hits} of {N_LIDAR_POINTS} points")
+
+    steps, peaks = [], []
+
+    def record(state, epoch, it, logs):
+        steps.append({k: float(v) for k, v in logs.items()})
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+
+    work_dir = os.path.join(tmp, "train_cli")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    state = train_cli.main(
+        [config, "--work-dir", work_dir, "--device", dev.type, "--bf16",
+         "--profile", "--max-epochs", str(CLI_EPOCHS), "--cfg-options",
+         *opts],
+        hooks=[record])
+    run_s = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+
+    batch_size = cfg["data"]["samples_per_gpu"]
+    n_steps = CLI_EPOCHS * (N_TRAIN_FRAMES // batch_size)
+    if len(steps) != n_steps or state.step != n_steps:
+        raise AssertionError(f"train CLI: {len(steps)} steps logged, state "
+                             f"step {state.step}, want {n_steps}")
+    for i, logs in enumerate(steps):
+        if not all(math.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"train CLI step {i}: {logs}")
+        if not logs.get("loss_depth", 0.0) > 0.0:
+            raise AssertionError(f"train CLI step {i}: no depth loss {logs}")
+    with open(os.path.join(work_dir, "train_log.jsonl")) as f:
+        evals = [r["eval"] for r in map(json.loads, f) if "eval" in r]
+    if len(evals) != 1 or evals[0]["eval_frames"] != N_EVAL_FRAMES:
+        raise AssertionError(f"train CLI: evals {evals}")
+    for name in ("gwc_warp", "dcn_gather", "lift_splat_fused"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"train CLI: {name} never launched "
+                                 f"({launches})")
+    ckpts = os.path.join(work_dir, "ckpts")
+    left = sorted(os.listdir(ckpts))
+    latest = CheckpointManager(ckpts).latest_step
+    saved = torch.load(os.path.join(ckpts, f"{latest}.pth"),
+                       map_location="cpu", weights_only=True)["state_dict"]
+    trained = state.model.state_dict()
+    if latest != n_steps or saved.keys() != trained.keys() or not all(
+            torch.equal(saved[k], trained[k].cpu()) for k in saved):
+        raise AssertionError(f"train CLI: ckpts/ step {latest} does not "
+                             "hold the trained weights")
+    bad = [k for k, v in trained.items()
+           if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    # the trained model on the first val frame, as the loop's eval runs it
+    state.model.eval()
+    batch = to_device(next(iter(test_cli.make_loader(cfg, "val", 1)[1])), dev)
+    logits = state.model(batch)["output_voxels"].float()
+    if bad or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"train CLI: non-finite trained tensors {bad[:5]}"
+                             f" or eval logits")
+    empty = float((logits.argmax(-1) == 0).float().mean())
+    del saved, trained, state, batch, logits
+
+    build.launch_counts.clear()
+    res = test_cli.main([config, "--checkpoint", ckpts, "--device", dev.type,
+                         "--cfg-options", *val_opts])
+    loop = evals[0]
+    diffs = {k: abs(res[k] - loop[k]) for k in loop
+             if k.startswith("semkitti_")}
+    largest = max((v for v in diffs.values() if not math.isnan(v)),
+                  default=0.0)
+    bad = {k: v for k, v in diffs.items() if not v <= 0.01
+           and not (math.isnan(res[k]) and math.isnan(loop[k]))}
+    if len(diffs) < 20 or bad:
+        raise AssertionError(f"eval CLI on ckpts vs the loop's eval: off by "
+                             f"more than 0.01 points: {bad}")
+    ms = [logs["step_time_s"] * 1e3 for logs in steps]
+    terms = [{k: round(v, 5) for k, v in logs.items()
+              if k.startswith("loss")} for logs in steps]
+    print(f"phase 9 bf16 train CLI on {card}: {EVAL_CONFIG} B = "
+          f"{batch_size}, {CLI_EPOCHS} epochs of {N_TRAIN_FRAMES} frames "
+          f"with {N_LIDAR_POINTS}-point LiDAR sweeps; gt_depth pixels per "
+          f"eye {hits} (points_count {int(sample['points_count'])}), one "
+          f"frame's LiDAR products on the host "
+          f"{statistics.median(lidar_ms):.2f} ms (median of 5; samples "
+          f"{', '.join(f'{t:.2f}' for t in lidar_ms)}); losses per step "
+          f"{terms}; ms per step {statistics.median(ms[1:]):.1f} (median of "
+          f"the last {n_steps - 1}; samples "
+          f"{', '.join(f'{t:.1f}' for t in ms)}); peak memory in training "
+          f"{max(peaks):.2f} GiB; whole run {run_s:.1f} s; ckpts/ holds "
+          f"{left}, the latest equal to the trained weights; the trained "
+          f"model's fp32 logits on val frame 0 finite, {empty:.4f} of the "
+          f"voxel grid predicted empty; eval CLI on "
+          f"ckpts vs the loop's eval: largest metric difference "
+          f"{largest:.4f} points over {len(diffs)} metrics "
+          f"({sum(math.isnan(v) for v in diffs.values())} NaN in both), "
+          f"semkitti_SC_IoU "
+          f"{res['semkitti_SC_IoU']}, semkitti_SSC_mIoU "
+          f"{res['semkitti_SSC_mIoU']}; launches {launches}", flush=True)
     return launches
 
 
@@ -1081,13 +1282,20 @@ def main() -> None:
     training = phase_train(DetectorConfig(), dev, _build, train,
                            seeded_init_, BEVDepthOccupancy)
     torch.cuda.empty_cache()
-    evaluation = phase_eval(dev, _build, card, seeded_init_)
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = write_semkitti_tree(os.path.join(tmp, "semkitti"),
+                                   N_EVAL_FRAMES, N_TRAIN_FRAMES)
+        evaluation = phase_eval(dev, _build, card, seeded_init_, tmp, tree)
+        torch.cuda.empty_cache()
+        train_cli = phase_train_cli(dev, _build, card, tmp, tree)
     for path, counts, needs in (
             ("serving", serving, ("gwc_warp", "dcn_gather",
                                   "lift_splat_fused")),
             ("training", training, ("gwc_warp", "dcn_gather", "conv3d_s1")),
             ("eval", evaluation, ("gwc_warp", "dcn_gather",
-                                  "lift_splat_fused"))):
+                                  "lift_splat_fused")),
+            ("train CLI", train_cli, ("gwc_warp", "dcn_gather",
+                                      "lift_splat_fused"))):
         for name in needs:
             if counts.get(name, 0) < 1:
                 raise AssertionError(f"{name} never launched in {path}")
@@ -1109,7 +1317,8 @@ def main() -> None:
     for k in kernels:
         k["route"] = "cuda"
         k["launches"] = sum(run.get(k["name"], 0)
-                            for run in (serving, training, evaluation))
+                            for run in (serving, training, evaluation,
+                                        train_cli))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

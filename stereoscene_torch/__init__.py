@@ -3,8 +3,8 @@ for NVIDIA Hopper.
 
 The JAX package ``stereoscene_tpu`` stays the reference; this package keeps
 its layout (``config``, ``configs/``, ``data/``, ``geometry``, ``metrics``,
-``ops/``, ``models/``, ``losses/``, ``engine/``, ``utils/``; the eval CLI in
-``tools/``) and names. It imports ``torch`` and never ``jax``. The
-hand-written kernels live in ``csrc/`` and are built at first use by
+``ops/``, ``models/``, ``losses/``, ``engine/``, ``utils/``; the train and
+eval CLIs in ``tools/``) and names. It imports ``torch`` and never ``jax``.
+The hand-written kernels live in ``csrc/`` and are built at first use by
 ``_build.load_kernels``.
 """

@@ -1,5 +1,5 @@
-"""Host-side per-frame pipeline: images, augmentation homography, voxel
-labels -> the model's batch sample.
+"""Host-side per-frame pipeline: images, augmentation homography, LiDAR
+depth, voxel labels -> the model's batch sample.
 
 Port of ``stereoscene_tpu/data/pipeline.py`` (a copy: the port imports
 nothing of the JAX package), the rebuild of the reference stages (numpy and
@@ -13,10 +13,16 @@ PIL on the host CPU):
   (ref: loading_bevdet.py:19-34).
 - ``LoadSemKittiAnnotation`` (ref :358-402): voxel labels, with the BEV
   augmentation matrix ``bda`` the identity.
+- ``CreateDepthFromLiDAR`` (ref: datasets/pipelines/occ_to_depth.py:190-345):
+  project the velodyne points through each camera, keep the in-image
+  points, write them far first so that the NEAREST return wins each pixel,
+  and produce the sparse depth map, the labeled point set (points_occ),
+  their normalized uv (points_uv) and an image-seg map. Numpy only: the JAX
+  package's optional native scatter is not ported.
 
-The training-data branches of the JAX pipeline (BEV augmentation, CRP
-relation labels, LiDAR depth maps) are not ported yet: a config that turns
-one on raises ``NotImplementedError``.
+Two training-data branches of the JAX pipeline (BEV augmentation, CRP
+relation labels) are not ported yet: a config that turns one on raises
+``NotImplementedError``.
 
 The output dict uses plain numpy arrays; ``loader.BatchLoader`` stacks them.
 """
@@ -28,6 +34,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from .labels import seg_remap_lut
 from .semantic_kitti import FrameInfo
 
 IMG_MEAN = np.array([123.675, 116.28, 103.53], np.float32)  # RGB
@@ -120,10 +127,34 @@ def normalize_image(img: np.ndarray) -> np.ndarray:
     return (img.astype(np.float32) - IMG_MEAN) / IMG_STD
 
 
+def project_lidar_to_image(
+    points: np.ndarray,
+    rot: np.ndarray,
+    tran: np.ndarray,
+    intrin: np.ndarray,
+    post_rot: np.ndarray,
+    post_tran: np.ndarray,
+) -> np.ndarray:
+    """LiDAR xyz -> (u, v, depth) in the augmented image.
+
+    ref: occ_to_depth.py:215-233 (ego -> camera via inverse cam2lidar,
+    camera -> raw pixels via the 3x4 P-matrix, then the post homography).
+    """
+    cam = (np.linalg.inv(rot) @ (points - tran).T).T
+    homo = np.concatenate([cam, np.ones((len(cam), 1), cam.dtype)], axis=1)
+    pix = (intrin @ homo.T).T
+    depth = pix[:, 2:3]
+    uv = pix[:, :2] / np.maximum(np.abs(depth), 1e-6) * np.sign(depth)
+    uv = (post_rot[:2, :2] @ uv.T).T + post_tran[:2]
+    return np.concatenate([uv, depth], axis=1)
+
+
 class SemanticKittiPipeline:
     """FrameInfo -> model batch sample (numpy dict): imgs [2, H, W, 3]
     normalised, rots / trans / intrins / post_rots / post_trans per eye,
-    bda [3, 3], calib, and gt_occ where the frame has labels.
+    bda [3, 3], calib, gt_occ where the frame has labels, and with
+    ``load_lidar_depth`` the LiDAR products of ``_lidar_products`` where the
+    frame has a scan.
 
     ``BatchLoader`` runs this from several worker threads and passes a
     deterministic per-sample ``seed``, so every augmentation draw is
@@ -132,14 +163,15 @@ class SemanticKittiPipeline:
     def __init__(self, cfg: PipelineConfig, seed: int = 0):
         off = [name for name, on in (
             ("apply_bda", cfg.apply_bda and cfg.is_train),
-            ("relation_label_shape", cfg.relation_label_shape is not None),
-            ("load_lidar_depth", cfg.load_lidar_depth)) if on]
+            ("relation_label_shape", cfg.relation_label_shape is not None))
+            if on]
         if off:
             raise NotImplementedError(
                 f"stereoscene_torch does not port the training-data "
                 f"branches {off} yet")
         self.cfg = cfg
         self.rng = np.random.RandomState(seed)
+        self._seg_lut = seg_remap_lut()
 
     def __call__(
         self, frame: FrameInfo, seed: Optional[int] = None
@@ -184,4 +216,77 @@ class SemanticKittiPipeline:
         }
         if frame.voxel_path is not None:
             sample["gt_occ"] = np.load(frame.voxel_path).astype(np.int32)
+        if cfg.load_lidar_depth and frame.lidar_path is not None:
+            sample.update(self._lidar_products(frame, sample))
         return sample
+
+    def _lidar_products(self, frame: FrameInfo,
+                        sample) -> Dict[str, np.ndarray]:
+        """Sparse depth maps + labeled points (ref occ_to_depth.py:235-345):
+        gt_depth and img_seg [2, H, W] float32 (0 where no point lands),
+        points_occ [max_points, 4] (ego xyz and train-id label of the left
+        camera's in-image points, zero-padded), points_uv [max_points, 3]
+        (their uv in [-1, 1] and depth) and points_count."""
+        cfg = self.cfg
+        h, w = cfg.input_size
+        pts = np.fromfile(frame.lidar_path,
+                          dtype=np.float32).reshape(-1, 4)[:, :3]
+        if frame.lidarseg_path is not None:
+            seg = np.fromfile(frame.lidarseg_path, dtype=np.uint32) & 0xFFFF
+            seg = self._seg_lut[seg.astype(np.int64)].astype(np.float32)
+        else:
+            seg = np.zeros((len(pts),), np.float32)
+
+        out: Dict[str, np.ndarray] = {}
+        depth_maps = []
+        seg_maps = []
+        for cam in range(2):
+            uvd = project_lidar_to_image(
+                pts,
+                sample["rots"][cam],
+                sample["trans"][cam],
+                sample["intrins"][cam],
+                sample["post_rots"][cam],
+                sample["post_trans"][cam],
+            )
+            valid = (
+                (uvd[:, 0] >= 0)
+                & (uvd[:, 1] >= 0)
+                & (uvd[:, 0] <= w - 1)
+                & (uvd[:, 1] <= h - 1)
+                & (uvd[:, 2] > 0)
+            )
+            vu = uvd[valid]
+            vseg = seg[valid]
+            # far first: numpy's fancy-index assignment writes repeated
+            # indices in order, so the last (nearest) point wins a pixel
+            order = np.argsort(-vu[:, 2])
+            vu_o = vu[order]
+            vseg_o = vseg[order]
+            ui = np.round(vu_o[:, 0]).astype(np.int64)
+            vi = np.round(vu_o[:, 1]).astype(np.int64)
+            dmap = np.zeros((h, w), np.float32)
+            smap = np.zeros((h, w), np.float32)
+            dmap[vi, ui] = vu_o[:, 2]
+            smap[vi, ui] = vseg_o
+            depth_maps.append(dmap)
+            seg_maps.append(smap)
+
+            if cam == 0:
+                # labeled points in ego frame + normalized uv (left camera)
+                points_occ = np.concatenate([pts, seg[:, None]], axis=1)[valid]
+                uv_norm = uvd[valid].copy()
+                uv_norm[:, 0] = (uv_norm[:, 0] / w - 0.5) * 2
+                uv_norm[:, 1] = (uv_norm[:, 1] / h - 0.5) * 2
+                n = min(len(points_occ), cfg.max_points)
+                occ_fixed = np.zeros((cfg.max_points, 4), np.float32)
+                uv_fixed = np.zeros((cfg.max_points, 3), np.float32)
+                occ_fixed[:n] = points_occ[:n]
+                uv_fixed[:n] = uv_norm[:n]
+                out["points_occ"] = occ_fixed
+                out["points_uv"] = uv_fixed
+                out["points_count"] = np.int32(n)
+
+        out["gt_depth"] = np.stack(depth_maps)
+        out["img_seg"] = np.stack(seg_maps)
+        return out

@@ -215,9 +215,11 @@ def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
                    loss_cfg: LossConfig, bf16: bool = False,
                    use_kernel=None, generator=None):
     """One training forward and backward: (total loss, loss terms, the
-    fp32 gradients of ``state.trainable`` in its order). Updates the
-    BatchNorm statistics in place."""
+    fp32 gradients of ``state.trainable`` in its order). The model runs in
+    training mode (the JAX step's ``train=True``, also after an eval put it
+    in eval mode) and updates the BatchNorm statistics in place."""
     model = state.model
+    model.train()
     params = [p for _, p in state.trainable]
     with bf16_params(model) if bf16 else contextlib.nullcontext():
         inputs = dict(batch, imgs=batch["imgs"].bfloat16()) if bf16 \

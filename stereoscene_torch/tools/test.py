@@ -13,7 +13,9 @@ frame's prediction: SemanticKITTI benchmark ``.label`` files (argmax ->
 
 ``--checkpoint`` takes a checkpoint in the reference's key layout (the
 ``state_dict`` entry of a training checkpoint, or the bare dict) and loads
-it strictly; without one the weights are the model's seeded initial ones.
+it strictly, or the train CLI's ``WORK_DIR/ckpts`` directory, whose latest
+step it loads; without one the weights are the model's seeded initial
+ones.
 Eval runs in fp32, on the card unless ``--device cpu``.
 """
 
@@ -35,6 +37,7 @@ from ..data import (
     inv_map,
 )
 from ..data.semantic_kitti import FrameInfo
+from ..engine.checkpoint import CheckpointManager
 from ..engine.eval import make_eval_step
 from ..engine.loop import pad_batch, run_evaluation, to_device
 from ..metrics import empty_state
@@ -49,7 +52,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="deep config overrides, key.path=value "
                         "(mmcv DictAction semantics, ref tools/train.py:69-78)")
     p.add_argument("--checkpoint", default=None,
-                   help="a .pth in the reference's key layout")
+                   help="a .pth in the reference's key layout, or a train "
+                        "run's ckpts directory (its latest step)")
     p.add_argument("--split", default="val",
                    choices=["val", "test", "test_submit"])
     p.add_argument("--batch-size", type=int, default=1)
@@ -122,7 +126,14 @@ def main(argv: Optional[Sequence[str]] = None):
     device = torch.device(args.device)
     torch.manual_seed(0)
     model = BEVDepthOccupancy(det_cfg, device=device, label_shape=occ_size)
-    if args.checkpoint:
+    if args.checkpoint and os.path.isdir(args.checkpoint):
+        ckpts = CheckpointManager(args.checkpoint)
+        step = ckpts.latest_step
+        if step is None:
+            raise SystemExit(f"no checkpoint in {args.checkpoint}")
+        load_checkpoint(model, ckpts.path(step))
+        print(f"restored checkpoint step {step}")
+    elif args.checkpoint:
         load_checkpoint(model, args.checkpoint)
         print(f"loaded checkpoint {args.checkpoint}")
 

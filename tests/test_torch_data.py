@@ -31,15 +31,16 @@ LABEL_SHAPE = (32, 32, 8)  # occ_size of stereoscene_tiny.py
 
 
 def write_semkitti_tree(root, frame_ids=("000000", "000005"),
-                        label_shape=LABEL_SHAPE, seed=0):
-    """Sequence 08 under ``root``: returns (data_root, ann_file)."""
+                        label_shape=LABEL_SHAPE, seed=0, seq="08"):
+    """Sequence ``seq`` (08: the val split; 00: train) under ``root``:
+    returns (data_root, ann_file)."""
     from PIL import Image
 
-    seq_dir = os.path.join(root, "dataset", "sequences", "08")
+    seq_dir = os.path.join(root, "dataset", "sequences", seq)
     ann = os.path.join(root, "labels")
     for sub in ("image_2", "image_3", "voxels"):
         os.makedirs(os.path.join(seq_dir, sub), exist_ok=True)
-    os.makedirs(os.path.join(ann, "08"), exist_ok=True)
+    os.makedirs(os.path.join(ann, seq), exist_ok=True)
     with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
         f.write(CALIB_TXT)
     rng = np.random.RandomState(seed)
@@ -51,7 +52,7 @@ def write_semkitti_tree(root, frame_ids=("000000", "000005"),
             f.write(b"\0")
         occ = rng.choice([0, 1, 9, 11, 15, 255], size=label_shape,
                          p=[0.6, 0.08, 0.1, 0.07, 0.05, 0.1])
-        np.save(os.path.join(ann, "08", f"{fid}_1_1.npy"), occ.astype(np.uint8))
+        np.save(os.path.join(ann, seq, f"{fid}_1_1.npy"), occ.astype(np.uint8))
     return root, ann
 
 
@@ -121,11 +122,13 @@ def test_pipeline_samples_match_jax(tree, train):
 
 
 def test_pipeline_refuses_the_training_data_branches():
+    """BEV augmentation and the CRP relation labels are not ported; the
+    LiDAR depth branch is (tests/test_torch_lidar.py)."""
     for kwargs in (dict(apply_bda=True, is_train=True),
-                   dict(relation_label_shape=(32, 32, 4)),
-                   dict(load_lidar_depth=True)):
+                   dict(relation_label_shape=(32, 32, 4))):
         with pytest.raises(NotImplementedError):
             data.SemanticKittiPipeline(data.PipelineConfig(**kwargs))
+    data.SemanticKittiPipeline(data.PipelineConfig(load_lidar_depth=True))
 
 
 @pytest.mark.parametrize("batch_size,shuffle", [(1, True), (2, False)])
