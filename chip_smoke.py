@@ -68,16 +68,30 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    frames per second and ``eval_time_s``, PNG decoding included;
 9. training from data: the train CLI ``stereoscene_torch.tools.train.main``
    on the card with the flagship config (B = 2, bf16, two epochs of the
-   four train frames, the LiDAR depth branch on), then its eval after
-   epoch 2 over the four val frames: the gt_depth pixels per eye and one
-   frame's LiDAR products' host ms, every step's loss terms (all finite,
-   the depth term nonzero), ms per step, the peak memory, the steps left in
-   ``ckpts/``, the launches (K1, P1 and K3 at least once); then the eval
-   CLI on ``ckpts/`` gives the loop's eval metrics within 0.01 points.
+   four train frames in index order, the LiDAR depth branch on), then its
+   eval after epoch 2 over the four val frames: the gt_depth pixels per
+   eye and one frame's LiDAR products' host ms, every step's loss terms
+   (all finite, the depth term nonzero), ms per step, the peak memory, the
+   steps left in ``ckpts/``, the launches (K1, P1 and K3 at least once);
+   then the eval CLI on ``ckpts/`` gives the loop's eval metrics within
+   0.01 points;
+10. data parallelism: two ranks spawned on the one card, joined over gloo
+   (NCCL refuses two ranks on one device), each run the train CLI on the
+   flagship config at B = 1 (a global batch of 2), bf16, index order, for
+   one epoch (2 steps, then the loop's eval, two val frames a rank): the
+   ranks' loss terms bitwise equal every step, a digest of every
+   parameter's bits equal after every step, step 1 within 1e-3 relative of
+   phase 9's B = 2 step 1, K1, P1 and K3 launched on each rank; then the
+   two ranks' eval CLI on phase 9's ``ckpts/`` gives exactly its 25
+   ``semkitti_*`` metrics; then one rank over NCCL (``--coordinator``)
+   takes 2 finite steps; then ``--flops`` on the flagship eval forward.
+   Prints ms per step and peak GiB per rank, the gradient all-reduce's ms
+   per step and bytes, eval frames/s (two ranks time-slice one card: not a
+   data-parallel speed-up).
 
 Then one JSON line with each kernel (its launches in the serving, bf16
-training, eval and train CLI runs, each counted from 0 just before its
-run, its
+training, eval, train CLI and data-parallel runs, each counted from 0 just
+before its run, its
 error, its times and its bound from phases 2-4c; the
 bound is the larger of the bytes it must move over 3.35 TB/s and its
 operations over the H100 SXM datasheet's peak for their type, 989 TFLOP/s
@@ -87,6 +101,8 @@ measured in this run on this card. No JAX is imported.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import os
@@ -106,6 +122,7 @@ N_EVAL_FRAMES = 4
 N_TRAIN_FRAMES = 4  # sequence 00 of the phase 8-9 tree
 N_LIDAR_POINTS = 120_000  # about one HDL-64 sweep
 CLI_EPOCHS = 2  # the flagship config evaluates every 2 epochs
+DP_TIMEOUT_S = 300.0  # phase 10's process group and spawned ranks
 LABEL_SHAPE = (256, 256, 32)
 EVAL_CONFIG = "stereoscene_semantickitti.py"  # the flagship's config file
 # H100 SXM datasheet peaks (dense, without sparsity)
@@ -820,7 +837,7 @@ def phase_eval(dev, build, card: str, seeded_init_, tmp: str,
     res_k = cli.main(argv + ["--cfg-options", *opts])
     launches = dict(build.launch_counts)
 
-    index, loader = cli.make_loader(cfg, "val", 1)
+    frames, loader = cli.make_loader(cfg, "val", 1)
     eval_step, preds = make_eval_step(LABEL_SHAPE), []
 
     def step(model, batch, state, use_kernel=None):
@@ -836,7 +853,7 @@ def phase_eval(dev, build, card: str, seeded_init_, tmp: str,
                              f"{dict(build.launch_counts)}")
     pred_p = np.concatenate(preds)
     lut, pred_k = inv_map(), []
-    for frame in index.frames:
+    for frame in frames:
         name = f"{frame.sequence}_{frame.frame_id}"
         pred_k.append(np.load(os.path.join(pred_dir, name + ".npy")))
         raw = np.fromfile(os.path.join(
@@ -881,10 +898,11 @@ def phase_eval(dev, build, card: str, seeded_init_, tmp: str,
 def phase_train_cli(dev, build, card: str, tmp: str, tree: tuple) -> dict:
     """The train CLI (``stereoscene_torch.tools.train.main``) on the card:
     the flagship config at its ``samples_per_gpu`` (B = 2) in bf16 for
-    ``CLI_EPOCHS`` epochs over the tree's train frames with LiDAR depth,
-    then the loop's eval over the val frames; then the eval CLI on the
-    run's ``ckpts/``. Returns the launches of the training run, its eval
-    included."""
+    ``CLI_EPOCHS`` epochs over the tree's train frames in index order
+    (``--deterministic-data``) with LiDAR depth, then the loop's eval over
+    the val frames; then the eval CLI on the run's ``ckpts/``. Returns the
+    launches of the training run, its eval included, its first step's
+    logs, the ``ckpts/`` directory and the eval CLI's metrics."""
     import stereoscene_torch
     from stereoscene_torch.config import Config, merge_from_options
     from stereoscene_torch.data import (
@@ -943,8 +961,8 @@ def phase_train_cli(dev, build, card: str, tmp: str, tree: tuple) -> dict:
     t0 = time.perf_counter()
     state = train_cli.main(
         [config, "--work-dir", work_dir, "--device", dev.type, "--bf16",
-         "--profile", "--max-epochs", str(CLI_EPOCHS), "--cfg-options",
-         *opts],
+         "--profile", "--deterministic-data", "--max-epochs",
+         str(CLI_EPOCHS), "--cfg-options", *opts],
         hooks=[record])
     run_s = time.perf_counter() - t0
     launches = dict(build.launch_counts)
@@ -1025,7 +1043,257 @@ def phase_train_cli(dev, build, card: str, tmp: str, tree: tuple) -> dict:
           f"semkitti_SC_IoU "
           f"{res['semkitti_SC_IoU']}, semkitti_SSC_mIoU "
           f"{res['semkitti_SSC_mIoU']}; launches {launches}", flush=True)
-    return launches
+    return dict(launches=launches, first_step=steps[0], ckpts=ckpts,
+                metrics=res)
+
+
+def param_digest(model) -> int:
+    """A digest of every parameter's bits: the sum of each fp32 word, as
+    an integer, times a position weight (int64, wrapping)."""
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    bits = flat.view(torch.int32).long()
+    weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return int((bits * weights).sum())
+
+
+@contextlib.contextmanager
+def timed_gradient_reduce(train_module, record: list):
+    """Within the block ``train_module.reduce_gradients`` (the train step
+    looks it up at each call) appends (ms between two device
+    synchronisations, bytes reduced) to ``record`` at each call."""
+    reduce = train_module.reduce_gradients
+
+    def timed(grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(grads)
+        torch.cuda.synchronize()
+        record.append(((time.perf_counter() - t0) * 1e3,
+                       sum(g.numel() * g.element_size() for g in grads)))
+        return out
+
+    train_module.reduce_gradients = timed
+    try:
+        yield
+    finally:
+        train_module.reduce_gradients = reduce
+
+
+def dp_rank(rank: int, url: str, device_type: str, train_argv: list,
+            eval_argv: list, out: str) -> None:
+    """One rank of phase 10, in a spawned process: joins the two-rank gloo
+    group at ``url`` on the one card, runs the train CLI (``train_argv``,
+    the group already joined), then the eval CLI (``eval_argv``), and
+    writes its records to ``out`` as JSON."""
+    from stereoscene_torch import _build, parallel
+    from stereoscene_torch.engine import train as train_module
+    from stereoscene_torch.tools import test as test_cli
+    from stereoscene_torch.tools import train as train_cli
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.init_distributed(url, 2, rank, device_type, backend="gloo",
+                              timeout_s=DP_TIMEOUT_S)
+    steps, digests, peaks, reduces = [], [], [], []
+
+    def record(state, epoch, it, logs):
+        steps.append({k: float(v) for k, v in logs.items()})
+        digests.append(param_digest(state.model))
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+
+    try:
+        _build.launch_counts.clear()
+        with timed_gradient_reduce(train_module, reduces):
+            state = train_cli.main(train_argv, hooks=[record])
+        train_launches = dict(_build.launch_counts)
+        final = state.step
+        del state
+        torch.cuda.empty_cache()
+        _build.launch_counts.clear()
+        metrics = test_cli.main(eval_argv)
+        eval_launches = dict(_build.launch_counts)
+    finally:
+        parallel.shutdown()
+    with open(out, "w") as f:
+        json.dump(dict(steps=steps, digests=digests, peaks=peaks,
+                       reduces=reduces, final_step=final,
+                       train_launches=train_launches,
+                       eval_launches=eval_launches, metrics=metrics), f)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_data_parallel(dev, build, card: str, tmp: str, tree: tuple,
+                        phase9: dict) -> dict:
+    """Phase 10: data-parallel training and multi-process eval. Two ranks
+    spawned on the one card over gloo (NCCL refuses two ranks on one
+    device) each run the train CLI on the flagship config at B = 1 (a
+    global batch of 2, phase 9's) in bf16 with ``--deterministic-data`` for
+    one epoch (2 steps, then the loop's eval of the val frames, two a rank),
+    then the eval CLI on phase 9's ``ckpts/``; then one rank over NCCL for
+    2 steps; then ``--flops`` on the flagship eval forward. Returns the
+    launches of every run, summed."""
+    import io
+
+    import stereoscene_torch
+    from stereoscene_torch.engine import train as train_module
+    from stereoscene_torch.tools import test as test_cli
+    from stereoscene_torch.tools import train as train_cli
+
+    config = os.path.join(os.path.dirname(stereoscene_torch.__file__),
+                          "configs", EVAL_CONFIG)
+    root, ann, lidar_root = tree
+    val_opts = [f"data.val.data_root={root}", f"data.val.ann_file={ann}"]
+    opts = val_opts + [
+        f"data.train.data_root={root}", f"data.train.ann_file={ann}",
+        f"lidar_root={lidar_root}", f"lidarseg_root={lidar_root}"]
+    train_argv = [config, "--device", dev.type, "--bf16", "--profile",
+                  "--deterministic-data", "--batch-size", "1",
+                  "--max-epochs", "1", "--work-dir",
+                  os.path.join(tmp, "dp_train"), "--cfg-options", *opts,
+                  "evaluation.interval=1"]
+    eval_argv = [config, "--checkpoint", phase9["ckpts"], "--device",
+                 dev.type, "--cfg-options", *val_opts]
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    url = f"tcp://127.0.0.1:{free_port()}"
+    outs = [os.path.join(tmp, f"dp_rank{r}.json") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=dp_rank, args=(r, url, dev.type, train_argv,
+                                                eval_argv, outs[r]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 2 * DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    if any(p.exitcode for p in procs):
+        raise AssertionError(f"phase 10 ranks exited with "
+                             f"{[p.exitcode for p in procs]}")
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f))
+
+    a, b = ranks
+    n_steps = N_TRAIN_FRAMES // 2
+    if (len(a["steps"]) != n_steps or a["final_step"] != n_steps
+            or b["final_step"] != n_steps):
+        raise AssertionError(f"phase 10: {len(a['steps'])} steps logged, "
+                             f"final steps {a['final_step']} / "
+                             f"{b['final_step']}, want {n_steps}")
+    terms = [{k: v for k, v in logs.items() if k.startswith("loss")}
+             for logs in a["steps"]]
+    if terms != [{k: v for k, v in logs.items() if k.startswith("loss")}
+                 for logs in b["steps"]]:
+        raise AssertionError(f"phase 10: the ranks' losses differ: {terms} "
+                             f"vs {b['steps']}")
+    if a["digests"] != b["digests"]:
+        raise AssertionError(f"phase 10: parameter digests differ: "
+                             f"{a['digests']} vs {b['digests']}")
+    ref = phase9["first_step"]
+    rel = {k: abs(v - ref[k]) / abs(ref[k]) for k, v in terms[0].items()}
+    if not all(math.isfinite(v) for logs in terms for v in logs.values()) \
+            or max(rel.values()) > 1e-3:
+        raise AssertionError(f"phase 10 step 1 vs phase 9's B = 2 step 1: "
+                             f"relative differences {rel} (limit 1e-3); "
+                             f"{terms[0]} vs {ref}")
+    for r in ranks:
+        for name in ("gwc_warp", "dcn_gather", "lift_splat_fused"):
+            if r["train_launches"].get(name, 0) < 1:
+                raise AssertionError(f"phase 10: {name} never launched on a "
+                                     f"rank ({r['train_launches']})")
+    want = {k: v for k, v in phase9["metrics"].items()
+            if k.startswith("semkitti_")}
+    for r in ranks:
+        got = {k: v for k, v in r["metrics"].items()
+               if k.startswith("semkitti_")}
+        same = got.keys() == want.keys() and all(
+            got[k] == want[k] or (math.isnan(got[k]) and math.isnan(want[k]))
+            for k in want)
+        if len(want) != 25 or not same or r["metrics"]["eval_frames"] != \
+                N_EVAL_FRAMES:
+            raise AssertionError(f"phase 10: two-rank eval CLI {got} vs "
+                                 f"one-process {want}")
+
+    # one rank over NCCL: the group's collectives and the gradient
+    # all-reduce on the card
+    nccl_reduces, nccl_steps = [], []
+    build.launch_counts.clear()
+    t1 = time.perf_counter()
+    with timed_gradient_reduce(train_module, nccl_reduces):
+        state = train_cli.main(
+            [config, "--device", dev.type, "--bf16", "--deterministic-data",
+             "--max-epochs", "1", "--work-dir", os.path.join(tmp, "dp_nccl"),
+             "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes",
+             "1", "--process-id", "0", "--cfg-options", *opts],
+            hooks=[lambda state, epoch, it, logs: nccl_steps.append(
+                {k: float(v) for k, v in logs.items()})])
+    nccl_s = time.perf_counter() - t1
+    nccl_launches = dict(build.launch_counts)
+    if state.step != n_steps or len(nccl_steps) != n_steps or not all(
+            math.isfinite(v) for logs in nccl_steps for v in logs.values()):
+        raise AssertionError(f"phase 10 NCCL rank: step {state.step}, logs "
+                             f"{nccl_steps}")
+    del state
+    torch.cuda.empty_cache()
+
+    # --flops on the flagship eval forward, then its eval
+    captured = io.StringIO()
+    build.launch_counts.clear()
+    with contextlib.redirect_stdout(captured):
+        flops_res = test_cli.main(eval_argv + ["--flops"])
+    flops_launches = dict(build.launch_counts)
+    flops_line = next(ln for ln in captured.getvalue().splitlines()
+                      if ln.startswith("[flops]"))
+    if flops_res["eval_frames"] != N_EVAL_FRAMES:
+        raise AssertionError(f"phase 10 --flops eval: {flops_res}")
+
+    ms = [[logs["step_time_s"] * 1e3 for logs in r["steps"]] for r in ranks]
+    red = [r["reduces"] for r in ranks]
+    frames_s = N_EVAL_FRAMES / max(r["metrics"]["eval_time_s"]
+                                   for r in ranks)
+    print(f"phase 10 data parallel on {card} (two gloo ranks time-slicing "
+          f"one card: not a speed-up): {EVAL_CONFIG} B = 1 a rank, "
+          f"{n_steps} bf16 steps then the loop's eval; losses per step "
+          f"{[{k: round(v, 5) for k, v in t.items()} for t in terms]}, "
+          f"equal on both ranks; step 1 vs phase 9's B = 2 step 1 largest "
+          f"relative difference {max(rel.values()):.2e} (limit 1e-3); "
+          f"parameter digests equal after every step; ms per step by rank "
+          f"{[[round(t, 1) for t in m] for m in ms]}; peak GiB by rank "
+          f"{[round(max(r['peaks']), 2) for r in ranks]}; gradient "
+          f"all-reduce (gloo, the card's tensors) ms per step by rank "
+          f"{[[round(t, 1) for t, _ in r] for r in red]}, "
+          f"{red[0][0][1]} bytes; two-rank eval CLI on phase 9's ckpts/ "
+          f"{N_EVAL_FRAMES} frames in {frames_s:.3f} frames/s, 25 semkitti "
+          f"metrics equal to the one-process eval CLI's; both ranks' run "
+          f"{ranks_s:.1f} s; one NCCL rank: {n_steps} finite steps, "
+          f"losses {[round(s['loss_total'], 5) for s in nccl_steps]}, "
+          f"gradient all-reduce ms {[round(t, 2) for t, _ in nccl_reduces]}"
+          f" ({nccl_reduces[0][1]} bytes), whole run {nccl_s:.1f} s; "
+          f"{flops_line}; launches by rank "
+          f"{[r['train_launches'] for r in ranks]} + eval "
+          f"{[r['eval_launches'] for r in ranks]}, NCCL {nccl_launches}, "
+          f"--flops eval {flops_launches}", flush=True)
+    launches = collections.Counter()
+    for counts in ([r["train_launches"] for r in ranks]
+                   + [r["eval_launches"] for r in ranks]
+                   + [nccl_launches, flops_launches]):
+        launches.update(counts)
+    return dict(launches)
 
 
 def phase_fp32_forward(model, batch, build) -> None:
@@ -1287,7 +1555,11 @@ def main() -> None:
                                    N_EVAL_FRAMES, N_TRAIN_FRAMES)
         evaluation = phase_eval(dev, _build, card, seeded_init_, tmp, tree)
         torch.cuda.empty_cache()
-        train_cli = phase_train_cli(dev, _build, card, tmp, tree)
+        phase9 = phase_train_cli(dev, _build, card, tmp, tree)
+        train_cli = phase9["launches"]
+        torch.cuda.empty_cache()
+        data_parallel = phase_data_parallel(dev, _build, card, tmp, tree,
+                                            phase9)
     for path, counts, needs in (
             ("serving", serving, ("gwc_warp", "dcn_gather",
                                   "lift_splat_fused")),
@@ -1295,7 +1567,9 @@ def main() -> None:
             ("eval", evaluation, ("gwc_warp", "dcn_gather",
                                   "lift_splat_fused")),
             ("train CLI", train_cli, ("gwc_warp", "dcn_gather",
-                                      "lift_splat_fused"))):
+                                      "lift_splat_fused")),
+            ("data parallel", data_parallel, ("gwc_warp", "dcn_gather",
+                                              "lift_splat_fused"))):
         for name in needs:
             if counts.get(name, 0) < 1:
                 raise AssertionError(f"{name} never launched in {path}")
@@ -1318,7 +1592,7 @@ def main() -> None:
         k["route"] = "cuda"
         k["launches"] = sum(run.get(k["name"], 0)
                             for run in (serving, training, evaluation,
-                                        train_cli))
+                                        train_cli, data_parallel))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

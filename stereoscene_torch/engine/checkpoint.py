@@ -22,6 +22,12 @@ Which steps survive follows the JAX package's orbax manager
 a tie goes to the later step, and a save of a step at or below the latest
 surviving step is skipped. So a save without metrics is dropped at once
 when ``max_to_keep`` evaluated steps survive.
+
+In a process group (``parallel``) every rank calls ``save`` with the same
+steps and metrics and keeps the same books, so all agree on which steps
+survive and which is the latest; rank 0 alone writes and deletes files,
+the background writes included. A save that waits ends in a barrier, so
+its file is there for every rank when ``save`` returns.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from .. import parallel
 
 _STEP_FILE = re.compile(r"^(\d+)\.pth$")
 
@@ -103,7 +111,7 @@ class CheckpointManager:
             self._saved = [s for s in self._saved if s[0] in keep]
             saved = step in keep
             payload = None
-            if saved:
+            if saved and parallel.is_primary():
                 payload = {
                     "meta": {"step": int(state.step),
                              "updates": int(state.updates), "epoch": epoch,
@@ -114,11 +122,14 @@ class CheckpointManager:
                 if state.grad_sum is not None:
                     payload["grad_sum"] = _to_cpu(state.grad_sum)
             self.wait()
-            self._thread = threading.Thread(
-                target=self._write, args=(step, payload, gone), daemon=True)
-            self._thread.start()
+            if parallel.is_primary():
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, payload, gone),
+                    daemon=True)
+                self._thread.start()
         if wait:
             self.wait()
+            parallel.barrier()
         return saved
 
     def _write(self, step: int, payload: Optional[Dict],

@@ -8,9 +8,23 @@ model's device, eval every ``eval_interval`` epochs, the best checkpoint by
 ``semkitti_combined_IoU`` plus the last ones (``CheckpointManager``), and
 JSONL + TensorBoard logging (the reference's TextLoggerHook +
 TensorboardLoggerHook at interval 50, ref projects/configs/_base_/
-default_runtime.py:6-11). Data parallelism is not ported yet: one process,
-one device. ``run_evaluation`` (ref: occupancy/apis/test.py:66-139) streams
-the SSC metric state over a loader.
+default_runtime.py:6-11). ``run_evaluation`` (ref: occupancy/apis/test.py:
+66-139) streams the SSC metric state over a loader.
+
+Data parallel (``parallel``), each rank with its shard of the index:
+
+- the ranks agree on the steps per epoch, the fewest any rank's loader
+  has, so shards of unequal length never leave a rank waiting in a
+  collective; and on the SIGTERM flag, every step, so all save the same
+  step and return together;
+- rank 0 alone writes ``train_log.jsonl``, ``tf_logs`` and the
+  checkpoints (the JAX loop appends the jsonl in every process); every
+  rank prints its log lines;
+- after init or restore, rank 0's parameters and buffers are broadcast
+  once; every rank restores the same step;
+- ``run_evaluation`` scores the rank's shard, then sums the int64 metric
+  state over the ranks once (no collective per frame: the shards may
+  differ in length), so every rank returns the same metrics.
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import metrics as ssc_metrics
+from .. import parallel
 from ..utils.tb_writer import TensorBoardWriter
 from .checkpoint import CheckpointManager
 from .train import TrainState
@@ -117,13 +132,21 @@ def run_training(
     loader has one, is set to the epoch the run starts in, so the resumed
     epoch's shuffle is the one an uninterrupted run sees."""
     del model  # the state holds it
-    logger = JsonlLogger(os.path.join(work_dir, "train_log.jsonl"))
-    tb = TensorBoardWriter(os.path.join(work_dir, "tf_logs"))
+    primary = parallel.is_primary()
+    logger = JsonlLogger(
+        os.path.join(work_dir, "train_log.jsonl") if primary else None)
+    tb = TensorBoardWriter(os.path.join(work_dir, "tf_logs")) \
+        if primary else None
     ckpt = CheckpointManager(os.path.join(work_dir, "ckpts"))
     state, start_step = ckpt.restore(state)
+    parallel.broadcast_module(state.model)
+    if parallel.reduce_ints([start_step], "min") != \
+            parallel.reduce_ints([start_step], "max"):
+        raise RuntimeError(f"rank {parallel.rank()} restored step "
+                           f"{start_step}, another rank another step")
     device = next(state.model.parameters()).device
 
-    steps_per_epoch = len(train_loader)
+    steps_per_epoch, = parallel.reduce_ints([len(train_loader)], "min")
     start_epoch = int(start_step) // max(steps_per_epoch, 1)
     skip_iters = int(start_step) % max(steps_per_epoch, 1)
     if hasattr(train_loader, "epoch"):
@@ -149,6 +172,8 @@ def run_training(
         for epoch in range(start_epoch, max_epochs):
             t_epoch = time.time()
             for it, batch in enumerate(train_loader):
+                if it == steps_per_epoch:
+                    break  # this rank's shard is longer than another's
                 if epoch == start_epoch and it < skip_iters:
                     continue  # mid-epoch resume: realign the data cursor
                 if trace_dir is not None and global_it == trace_steps[0]:
@@ -179,7 +204,7 @@ def run_training(
                 if (save_interval_steps
                         and state.step % save_interval_steps == 0):
                     ckpt.save(state.step, state, wait=False, epoch=epoch)
-                if preempted["flag"]:
+                if parallel.reduce_ints([preempted["flag"]], "max")[0]:
                     ckpt.save(state.step, state, epoch=epoch)
                     logger.log({"epoch": epoch, "iter": it,
                                 "preempted_at_step": state.step})
@@ -188,19 +213,22 @@ def run_training(
                     host_logs = {k: (v.item() if torch.is_tensor(v) else v)
                                  for k, v in logs.items()}
                     logger.log({"epoch": epoch, "iter": it, **host_logs})
-                    tb.add_scalars(
-                        {f"train/{k}": float(v) for k, v in host_logs.items()
-                         if np.isscalar(v) or np.ndim(v) == 0},
-                        step=state.step)
+                    if tb is not None:
+                        tb.add_scalars(
+                            {f"train/{k}": float(v)
+                             for k, v in host_logs.items()
+                             if np.isscalar(v) or np.ndim(v) == 0},
+                            step=state.step)
 
             metrics_out: Dict[str, float] = {}
             if eval_fn is not None and (epoch + 1) % eval_interval == 0:
                 metrics_out = eval_fn(state)
                 logger.log({"epoch": epoch, "eval": metrics_out})
-                tb.add_scalars(
-                    {f"val/{k}": float(v) for k, v in metrics_out.items()
-                     if isinstance(v, (int, float, np.floating))},
-                    step=state.step)
+                if tb is not None:
+                    tb.add_scalars(
+                        {f"val/{k}": float(v) for k, v in metrics_out.items()
+                         if isinstance(v, (int, float, np.floating))},
+                        step=state.step)
 
             ckpt.save(state.step, state, metrics=metrics_out, epoch=epoch + 1)
             logger.log({"epoch": epoch, "epoch_time_s": time.time() - t_epoch})
@@ -212,7 +240,8 @@ def run_training(
             tracer.stop()
             tracer.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
         ckpt.wait()
-        tb.close()
+        if tb is not None:
+            tb.close()
 
 
 def pad_batch(batch: Dict, batch_size: int) -> Dict:
@@ -253,7 +282,12 @@ def run_evaluation(
     device; returns the reference-format metric dict (``semkitti_*`` keys
     and the combined sort key) with ``eval_time_s`` (wall seconds, loading
     included) and ``eval_frames``. Prints the running completion IoU and
-    mIoU every 20 batches."""
+    mIoU every 20 batches.
+
+    In a process group each rank passes the loader of its own shard; the
+    metric state and ``eval_frames`` are summed over the ranks at the end
+    (``metrics.all_processes_state``), so every rank returns the metrics of
+    all frames (``eval_time_s`` stays the rank's own)."""
     device = next(model.parameters()).device
     state = ssc_metrics.empty_state(device=device)
     t0 = time.time()
@@ -270,7 +304,8 @@ def run_evaluation(
             print(f"[eval] {n} frames, running SC IoU "
                   f"{float(scores['iou']):.4f}, mIoU "
                   f"{float(scores['iou_ssc_mean']):.4f}", flush=True)
+    state = ssc_metrics.all_processes_state(state)
     out = ssc_metrics.evaluate_dict(state, class_names)
     out["eval_time_s"] = time.time() - t0
-    out["eval_frames"] = n
+    out["eval_frames"], = parallel.reduce_ints([n])
     return out

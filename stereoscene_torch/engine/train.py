@@ -21,6 +21,15 @@
 State is mutable here: the master parameters are the model's, its
 BatchNorm buffers are the batch statistics, and a step updates both in
 place.
+
+Data parallel (``parallel``): each rank runs the step on its shard of the
+global batch. The losses and BatchNorm statistics pool over the ranks, so
+every rank computes the global batch's loss; ``reduce_gradients`` then
+averages the ranks' gradients into the gradient of that loss (each rank's
+is W times its share, the ``all_sum`` backward summing W equal loss
+gradients), which the clip sees, as XLA's all-reduce in the JAX step.
+DDP's module wrapper does not fit: ``torch.autograd.grad`` never fires its
+reducer hooks, and ``bf16_params`` swaps the parameters inside the step.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from ..losses import (
     sem_scal_loss,
 )
 from ..ops.resize import resize_trilinear
+from ..parallel import reduce_gradients
 
 
 def step_lr_schedule(
@@ -264,13 +274,14 @@ def apply_gradients(state: TrainState, grads: List[torch.Tensor]) -> None:
 def make_train_step(loss_cfg: LossConfig, bf16: bool = False,
                     use_kernel=None) -> Callable:
     """``train_step(state, batch, generator=None) -> (state, logs)``:
-    the loss terms and ``loss_total`` as detached tensors. ``generator``
-    seeds DropPath and dropout."""
+    the loss terms and ``loss_total`` as detached tensors (the global
+    batch's, equal on every rank). ``generator`` seeds DropPath and
+    dropout."""
 
     def train_step(state: TrainState, batch, generator=None):
         total, losses, grads = loss_and_grads(
             state, batch, loss_cfg, bf16, use_kernel, generator)
-        apply_gradients(state, grads)
+        apply_gradients(state, reduce_gradients(grads))
         return state, dict(losses, loss_total=total)
 
     return train_step

@@ -3,7 +3,9 @@
 the sparse LiDAR depth is min-pooled to the feature stride (zero = no
 return), binned into the D depth bins as a one-hot target, and the
 predicted depth distribution takes a binary cross-entropy on the
-foreground pixels, normalised by their count.
+foreground pixels, normalised by their count: in a process group
+(``parallel``) the loss sum and the count are pooled over the ranks, so it
+is the global batch's loss.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import all_sum
 
 _EPS = 1e-12
 _LOG_CLAMP = -100.0
@@ -46,4 +50,5 @@ def bce_depth_loss(depth_labels: torch.Tensor, depth_probs: torch.Tensor,
     log_p = torch.log(preds.clamp(_EPS, 1.0)).clamp_min(_LOG_CLAMP)
     log_q = torch.log((1.0 - preds).clamp(_EPS, 1.0)).clamp_min(_LOG_CLAMP)
     bce = -(labels * log_p + (1.0 - labels) * log_q)
-    return (bce.sum(dim=1) * fg).sum() / fg.sum().clamp_min(1.0)
+    num, den = all_sum(torch.stack([(bce.sum(dim=1) * fg).sum(), fg.sum()]))
+    return num / den.clamp_min(1.0)

@@ -7,12 +7,20 @@ Layouts are the JAX package's: ``logits`` channels-last [B, X, Y, Z, C],
 ``target`` [B, X, Y, Z] with 255 = ignore. Every reduction is fp32
 whatever the input dtype. Denominators are clamped, so a batch that is all
 ignore gives finite values, not NaN: 0 for CE and sem_scal.
+
+Every loss pools over the global batch, as the JAX package's step over the
+sharded global batch does: in a process group (``parallel``) each sum over
+voxels (numerators, denominators, per-class counts) goes through
+``parallel.all_sum`` before any division or ``where``, so every rank
+computes the loss of all ranks' voxels together, and its gradient.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel import all_sum
 
 # ref: semkitti.py:8-31
 SEMANTIC_KITTI_CLASS_FREQUENCIES = np.array([
@@ -51,7 +59,8 @@ def ce_ssc_loss(logits: torch.Tensor, target: torch.Tensor,
     nll = -logp.gather(1, safe[:, None])[:, 0]
     w = torch.as_tensor(class_weights, dtype=torch.float32,
                         device=logits.device)[safe] * valid
-    return (nll * w).sum() / w.sum().clamp_min(_EPS)
+    num, den = all_sum(torch.stack([(nll * w).sum(), w.sum()]))
+    return num / den.clamp_min(_EPS)
 
 
 def geo_scal_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -64,10 +73,12 @@ def geo_scal_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     empty_t = valid - nonempty_t
     nonempty = (1.0 - empty) * valid
     empty = empty * valid
-    inter = (nonempty_t * nonempty).sum()
-    precision = inter / nonempty.sum().clamp_min(_EPS)
-    recall = inter / nonempty_t.sum().clamp_min(_EPS)
-    spec = (empty_t * empty).sum() / empty_t.sum().clamp_min(_EPS)
+    inter, p_sum, t_sum, spec_nom, e_sum = all_sum(torch.stack([
+        (nonempty_t * nonempty).sum(), nonempty.sum(), nonempty_t.sum(),
+        (empty_t * empty).sum(), empty_t.sum()]))
+    precision = inter / p_sum.clamp_min(_EPS)
+    recall = inter / t_sum.clamp_min(_EPS)
+    spec = spec_nom / e_sum.clamp_min(_EPS)
     return _neg_log(precision) + _neg_log(recall) + _neg_log(spec)
 
 
@@ -83,13 +94,13 @@ def sem_scal_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     classes = torch.arange(c, device=t.device, dtype=t.dtype)
     completion = (t[:, None] == classes[None, :]).float() * validf
     probs = probs * validf
-    nominator = (probs * completion).sum(0)
-    p_sum = probs.sum(0)
-    t_sum = completion.sum(0)
-    not_t_sum = validf.sum() - t_sum
+    nominator, p_sum, t_sum, spec_nom, n_valid = all_sum(torch.stack([
+        (probs * completion).sum(0), probs.sum(0), completion.sum(0),
+        ((1.0 - probs) * (1.0 - completion) * validf).sum(0),
+        validf.sum().expand(c)]))
+    not_t_sum = n_valid - t_sum
     precision = nominator / p_sum.clamp_min(_EPS)
     recall = nominator / t_sum.clamp_min(_EPS)
-    spec_nom = ((1.0 - probs) * (1.0 - completion) * validf).sum(0)
     specificity = spec_nom / not_t_sum.clamp_min(_EPS)
     zero = torch.zeros_like(p_sum)
     loss_c = (torch.where(p_sum > 0, _neg_log(precision), zero)

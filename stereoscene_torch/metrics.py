@@ -24,6 +24,8 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
+from . import parallel
+
 NUM_CLASSES = 20
 
 # ref: semkitti.py:33-54 (stereoscene_tpu/losses/semkitti.py KITTI_CLASS_NAMES)
@@ -99,6 +101,16 @@ def reduce_state_host(states: Iterable[Dict[str, torch.Tensor]]
     states = [{k: v.cpu() for k, v in s.items()} for s in states]
     return {k: sum((s[k] for s in states[1:]), start=states[0][k])
             for k in states[0]}
+
+
+def all_processes_state(state: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """The metric state summed over every rank of the process group, on
+    every rank, so each scores the same numbers and makes the same
+    best-checkpoint choice (``stereoscene_tpu/metrics.py:101-115``); the
+    state itself without a group. The counts are int64, so the sum is
+    exact: W ranks over their shards equal one process over all frames."""
+    return dict(zip(state, parallel.sum_tensors(list(state.values()))))
 
 
 def compute(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -183,7 +183,8 @@ class BEVDepthOccupancy(nn.Module):
         """imgs [B, 2, H, W, 3] -> (left, right) [B, C, fH, fW]."""
         b = imgs.shape[0]
         flat = imgs.transpose(0, 1).reshape((2 * b,) + imgs.shape[2:])
-        feats = self.img_backbone(flat.permute(0, 3, 1, 2), generator)
+        feats = self.img_backbone(flat.permute(0, 3, 1, 2), generator,
+                                  groups=2)
         neck = self.img_neck(feats)
         return neck[:b], neck[b:]
 

@@ -176,13 +176,14 @@ class InvertedResidual(nn.Module):
             out = drop_path(out, keep, self.drop_path_rate)
         return x + out
 
-    def drop_mask(self, x, generator):
+    def drop_mask(self, x, generator, groups: int = 1):
         """This block's DropPath mask for input ``x``, or None where it
-        drops nothing (eval mode, rate 0, no residual)."""
+        drops nothing (eval mode, rate 0, no residual); ``groups`` as
+        ``layers.keep_mask`` takes it."""
         if not (self.training and self.with_res and self.drop_path_rate > 0):
             return None
         return keep_mask((x.shape[0],), 1.0 - self.drop_path_rate,
-                         generator, x.device)
+                         generator, x.device, groups)
 
 
 class CustomEfficientNet(nn.Module):
@@ -208,8 +209,9 @@ class CustomEfficientNet(nn.Module):
         layers.append(ConvBNAct(cin, head_ch, _HEAD[0], stride=_HEAD[2]))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x, generator=None):
-        """``generator`` seeds the DropPath masks in training mode."""
+    def forward(self, x, generator=None, groups: int = 1):
+        """``generator`` seeds the DropPath masks in training mode; ``x``
+        stacks ``groups`` blocks of the batch (``layers.keep_mask``)."""
         outs = []
         last = max(self.out_indices)
         for i, layer in enumerate(self.layers):
@@ -217,7 +219,7 @@ class CustomEfficientNet(nn.Module):
                 break
             if isinstance(layer, nn.Sequential):  # a stage of blocks
                 for block in layer:
-                    x = block(x, block.drop_mask(x, generator))
+                    x = block(x, block.drop_mask(x, generator, groups))
             else:
                 x = layer(x)
             if i in self.out_indices:

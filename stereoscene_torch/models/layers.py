@@ -13,6 +13,10 @@ keeps fp32 statistics.
 Randomness (DropPath, Dropout) comes from an optional ``torch.Generator``
 through ``keep_mask``, so a caller can seed it; the JAX package draws from
 its ``dropout`` rng stream, which gives other bits from the same seed.
+
+Data parallelism (``parallel``): in training, BatchNorm takes the global
+batch's statistics and ``keep_mask`` draws for the global batch, as the
+JAX package's one step over the sharded global batch does.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import parallel
 from ..ops.conv3d import KERNEL_CIN, conv3d_s1
 
 
@@ -34,12 +39,23 @@ def ConvTransposeTorch(cin: int, cout: int, kernel_size: int, ndim: int,
                output_padding=output_padding, bias=bias)
 
 
-def keep_mask(shape, keep: float, generator, device) -> torch.Tensor:
+def keep_mask(shape, keep: float, generator, device,
+              groups: int = 1) -> torch.Tensor:
     """Bernoulli(``keep``) bool mask of ``shape`` on ``device``, drawn from
     ``generator`` (on the generator's device; torch's default generator
-    when None)."""
+    when None).
+
+    ``shape[0]`` is ``groups`` blocks of this rank's batch (the image
+    backbone stacks the left eyes, then the right ones). Over W ranks the
+    draw is for the global batch, each block W times as long, and this
+    rank keeps its slice of each block: W ranks that share the generator's
+    seed then draw what one process draws at W times the batch."""
     gen_device = generator.device if generator is not None else device
-    draw = torch.rand(shape, generator=generator, device=gen_device)
+    w, r = parallel.world_size(), parallel.rank()
+    n = shape[0] // groups
+    draw = torch.rand((groups, w * n) + tuple(shape[1:]),
+                      generator=generator, device=gen_device)
+    draw = draw[:, r * n:(r + 1) * n].reshape(shape)
     return (draw < keep).to(device)
 
 
@@ -83,13 +99,21 @@ class GroupNorm(nn.GroupNorm):
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm on any channels-first rank, computed in fp32.
 
-    Eval mode normalises with the running statistics. Training mode
-    normalises with the batch's mean and biased variance and updates the
-    running statistics as flax does (layers.py:958-976): r <- (1 - m) r +
-    m * batch statistic with m = ``self.momentum`` (torch's convention) and
-    the *biased* variance, where ``F.batch_norm`` would take the unbiased
-    one. ``update_stats=False`` leaves them alone: the recompute of a
-    checkpointed block must not update them a second time."""
+    Eval mode normalises with the running statistics and runs no
+    collective. Training mode normalises with the batch's mean and biased
+    variance and updates the running statistics as flax does
+    (layers.py:958-976): r <- (1 - m) r + m * batch statistic with m =
+    ``self.momentum`` (torch's convention) and the *biased* variance, where
+    ``F.batch_norm`` would take the unbiased one. ``update_stats=False``
+    leaves them alone: the recompute of a checkpointed block must not update
+    them a second time.
+
+    In a process group the batch is the global one, every rank's: the
+    statistics are pooled by ``parallel.all_sum`` in two passes, (count,
+    sum) for the mean, then the centred sum of squares, never as E[x^2] -
+    E[x]^2. Every rank then normalises with, and updates its running
+    statistics to, the same values. A checkpointed block's recompute pools
+    again, on every rank in the same order."""
 
     def forward(self, x, update_stats: bool = True):
         xf = x.float()
@@ -99,12 +123,20 @@ class BatchNorm(nn.BatchNorm2d):
                 self.weight.float(), self.bias.float(), False, 0.0,
                 self.eps).to(x.dtype)
         dims = [0] + list(range(2, x.dim()))
-        var, mean = torch.var_mean(xf, dim=dims, correction=0)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if parallel.initialized():
+            count = xf.numel() // xf.shape[1]
+            sums = parallel.all_sum(torch.cat([xf.sum(dims),
+                                               xf.new_full((1,), count)]))
+            mean = sums[:-1] / sums[-1]
+            var = parallel.all_sum(
+                (xf - mean.reshape(shape)).square().sum(dims)) / sums[-1]
+        else:
+            var, mean = torch.var_mean(xf, dim=dims, correction=0)
         if update_stats:
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
         y = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
                                                      + self.eps)
         return (y * self.weight.float().reshape(shape)

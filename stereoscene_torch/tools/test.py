@@ -9,7 +9,8 @@ frame's prediction: SemanticKITTI benchmark ``.label`` files (argmax ->
     python -m stereoscene_torch.tools.test CONFIG --checkpoint ckpt.pth \\
         [--split val] [--batch-size 1] [--device cuda] \\
         [--cfg-options key.path=value ...] \\
-        [--submission-dir DIR] [--save-pred-dir DIR]
+        [--submission-dir DIR] [--save-pred-dir DIR] [--flops] \\
+        [--coordinator HOST:PORT --num-processes W --process-id I]
 
 ``--checkpoint`` takes a checkpoint in the reference's key layout (the
 ``state_dict`` entry of a training checkpoint, or the bare dict) and loads
@@ -17,6 +18,17 @@ it strictly, or the train CLI's ``WORK_DIR/ckpts`` directory, whose latest
 step it loads; without one the weights are the model's seeded initial
 ones.
 Eval runs in fp32, on the card unless ``--device cpu``.
+
+``--flops`` prints the parameter count and the aten FLOPs of one eval
+forward on the plain route (``engine.flops``) before the run.
+
+Multi-process eval (the JAX CLI's flags): W processes started with the
+same ``--coordinator`` and ``--num-processes W``, each with its
+``--process-id``, join a process group (NCCL on ``cuda``, one card a rank,
+``cuda:I % cards``; gloo on ``cpu``). Each scores its shard of the index,
+``frames[I::W]``, and writes the predictions of its own frames; the int64
+metric states are summed over the ranks, so every rank prints the metrics
+of all frames.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Config, merge_from_options
 from ..data import (
     BatchLoader,
@@ -37,6 +50,7 @@ from ..data import (
     inv_map,
 )
 from ..data.semantic_kitti import FrameInfo
+from ..engine import flops
 from ..engine.checkpoint import CheckpointManager
 from ..engine.eval import make_eval_step
 from ..engine.loop import pad_batch, run_evaluation, to_device
@@ -63,6 +77,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="dump per-frame predicted voxel grids as .npy")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
+    p.add_argument("--flops", action="store_true",
+                   help="print the parameter count and the aten FLOPs of "
+                        "one eval forward on the plain route (the "
+                        "reference's fvcore table, ref test.py:84)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0's rendezvous (multi-process "
+                        "eval; each process scores its index shard, the "
+                        "metric states are summed over the processes)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p.parse_args(argv)
 
 
@@ -97,7 +121,8 @@ def write_prediction(pred: np.ndarray, frame: FrameInfo,
 
 def make_loader(cfg: Config, split: str, batch_size: int):
     """The config's SemanticKITTI frames of ``split`` through the eval
-    pipeline -> (index, loader in frame order)."""
+    pipeline, this rank's shard of them in a process group -> (frames,
+    loader in frame order)."""
     data_cfg = cfg["data"]["val" if split == "val" else "test"]
     pipe_cfg = PipelineConfig(
         input_size=tuple(cfg["data_config"]["input_size"]),
@@ -108,22 +133,34 @@ def make_loader(cfg: Config, split: str, batch_size: int):
                                ann_file=data_cfg["ann_file"], split=split)
     if len(index) == 0:
         raise SystemExit(f"no frames for split {split}")
-    loader = BatchLoader(index.frames, SemanticKittiPipeline(pipe_cfg),
+    frames = index.shard(parallel.rank(), parallel.world_size())
+    loader = BatchLoader(frames, SemanticKittiPipeline(pipe_cfg),
                          batch_size=batch_size, shuffle=False,
                          drop_last=False, num_workers=4)
-    return index, loader
+    return frames, loader
 
 
 def main(argv: Optional[Sequence[str]] = None):
     """Run the CLI; returns the metric dict, or None after writing
-    predictions."""
+    predictions. With ``--coordinator`` the process joins the group for the
+    run and leaves it at the end."""
     args = parse_args(argv)
+    if args.coordinator is None:
+        return _evaluate(args, torch.device(args.device))
+    device = parallel.init_distributed(args.coordinator, args.num_processes,
+                                       args.process_id, args.device)
+    try:
+        return _evaluate(args, device)
+    finally:
+        parallel.shutdown()
+
+
+def _evaluate(args: argparse.Namespace, device: torch.device):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         merge_from_options(cfg, args.cfg_options)
     det_cfg = DetectorConfig.from_config(cfg)
     occ_size = tuple(cfg["occ_size"])
-    device = torch.device(args.device)
     torch.manual_seed(0)
     model = BEVDepthOccupancy(det_cfg, device=device, label_shape=occ_size)
     if args.checkpoint and os.path.isdir(args.checkpoint):
@@ -137,8 +174,14 @@ def main(argv: Optional[Sequence[str]] = None):
         load_checkpoint(model, args.checkpoint)
         print(f"loaded checkpoint {args.checkpoint}")
 
-    index, loader = make_loader(cfg, args.split, args.batch_size)
+    frames, loader = make_loader(cfg, args.split, args.batch_size)
     eval_step = make_eval_step(occ_size)
+
+    if args.flops:  # the plan is made on the host, outside the count
+        example = model.attach_plan(to_device(next(iter(loader)), device))
+        flops.report(eval_step, model, model, example,
+                     empty_state(device=device), use_kernel=False,
+                     name="eval forward (incl. upsample+argmax)")
 
     if args.submission_dir or args.save_pred_dir:
         for i, batch in enumerate(loader):
@@ -147,7 +190,7 @@ def main(argv: Optional[Sequence[str]] = None):
             pred, _ = eval_step(model, batch, empty_state(device=device))
             preds = pred[:n_real].cpu().numpy()
             for j, p in enumerate(preds):
-                write_prediction(p, index.frames[i * args.batch_size + j],
+                write_prediction(p, frames[i * args.batch_size + j],
                                  args.submission_dir, args.save_pred_dir)
         print("wrote predictions")
         return None

@@ -12,13 +12,22 @@ under ``WORK_DIR/ckpts``, a save on SIGTERM, and a resume from
     python -m stereoscene_torch.tools.train CONFIG --work-dir W \\
         [--cfg-options key.path=value ...] [--seed 0] [--bf16] \\
         [--max-epochs N] [--batch-size B] [--save-interval-steps N] \\
-        [--deterministic-data] [--profile] [--trace-dir DIR] [--device cuda]
+        [--deterministic-data] [--profile] [--trace-dir DIR] [--device cuda] \\
+        [--coordinator HOST:PORT --num-processes W --process-id I]
 
-Training runs on the card unless ``--device cpu``. One process trains on one
-device: the JAX CLI's data-parallel and spatial-sharding flags
-(``--spatial-shards``, ``--coordinator``, ``--num-processes``,
-``--process-id``) are not ported yet. ``--resume-from`` is parsed and, as in
-the JAX CLI, not read.
+Training runs on the card unless ``--device cpu``. ``--resume-from`` is
+parsed and, as in the JAX CLI, not read.
+
+Data parallel (the JAX CLI's flags and meanings): W processes started with
+the same ``--coordinator`` and ``--num-processes W``, each with its
+``--process-id I``, join a process group (NCCL on ``cuda``, one card a
+rank, ``cuda:I % cards``; gloo on ``cpu``). Rank I trains on its shard of
+the index, ``frames[I::W]``, at ``--batch-size`` (by default the config's
+``samples_per_gpu``) per rank, so the global batch is W times that; the
+step computes the global batch's losses, BatchNorm statistics, masks and
+gradient (``parallel``), and rank 0 writes the log and the checkpoints.
+The JAX CLI's ``--spatial-shards`` (the voxel grid sharded over a
+``space`` axis, whose halo exchanges GSPMD writes there) is not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from .. import parallel
 from ..config import Config, merge_from_options
 from ..data import (
     BatchLoader,
@@ -75,14 +85,31 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0's rendezvous (data-parallel "
+                        "training over --num-processes processes)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None, hooks=None):
     """Run the CLI; returns the final train state. ``hooks`` go to
     ``run_training``: callables ``(state, epoch, it, logs)`` run after every
-    train step."""
+    train step. With ``--coordinator`` the process joins the group for the
+    run and leaves it at the end."""
     args = parse_args(argv)
+    if args.coordinator is None:
+        return _train(args, torch.device(args.device), hooks)
+    device = parallel.init_distributed(args.coordinator, args.num_processes,
+                                       args.process_id, args.device)
+    try:
+        return _train(args, device, hooks)
+    finally:
+        parallel.shutdown()
+
+
+def _train(args: argparse.Namespace, device: torch.device, hooks):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         merge_from_options(cfg, args.cfg_options)
@@ -92,7 +119,6 @@ def main(argv: Optional[Sequence[str]] = None, hooks=None):
 
     det_cfg = DetectorConfig.from_config(cfg)
     occ_size = tuple(cfg["occ_size"])
-    device = torch.device(args.device)
     torch.manual_seed(args.seed)
     model = BEVDepthOccupancy(det_cfg, device=device, label_shape=occ_size)
 
@@ -122,7 +148,7 @@ def main(argv: Optional[Sequence[str]] = None, hooks=None):
             " — run tools/preprocess_kitti.py first")
     batch_size = args.batch_size or data_cfg["samples_per_gpu"]
     train_loader = BatchLoader(
-        train_index.frames,
+        train_index.shard(parallel.rank(), parallel.world_size()),
         SemanticKittiPipeline(pipe_cfg, seed=args.seed),
         batch_size=batch_size,
         shuffle=not args.deterministic_data,
@@ -137,7 +163,7 @@ def main(argv: Optional[Sequence[str]] = None, hooks=None):
         lr=opt_cfg["lr"],
         weight_decay=opt_cfg["weight_decay"],
         grad_clip=cfg["optimizer_config"]["grad_clip"]["max_norm"],
-        steps_per_epoch=len(train_loader),
+        steps_per_epoch=parallel.reduce_ints([len(train_loader)], "min")[0],
         milestones=tuple(cfg["lr_config"]["step"]),
         frozen_predicate=(
             efficientnet_frozen_predicate(frozen_stages)
@@ -162,7 +188,9 @@ def main(argv: Optional[Sequence[str]] = None, hooks=None):
 
     def eval_fn(state):
         """The aug-free val split in fp32 with the model in eval mode, so
-        each batch goes through the static splat plan of its calibration."""
+        each batch goes through the static splat plan of its calibration;
+        each rank scores its shard (``run_evaluation`` sums the metric
+        states)."""
         eval_pipe = PipelineConfig(
             input_size=pipe_cfg.input_size, is_train=False,
             point_cloud_range=pipe_cfg.point_cloud_range)
@@ -171,7 +199,8 @@ def main(argv: Optional[Sequence[str]] = None, hooks=None):
             ann_file=data_cfg["val"]["ann_file"],
             split="val")
         eval_loader = BatchLoader(
-            eval_index.frames, SemanticKittiPipeline(eval_pipe),
+            eval_index.shard(parallel.rank(), parallel.world_size()),
+            SemanticKittiPipeline(eval_pipe),
             batch_size=max(1, batch_size // 2), shuffle=False,
             drop_last=False)
         return run_evaluation(state.model, make_eval_step(occ_size),
