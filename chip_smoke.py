@@ -88,9 +88,31 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    Prints ms per step and peak GiB per rank, the gradient all-reduce's ms
    per step and bytes, eval frames/s (two ranks time-slice one card: not a
    data-parallel speed-up).
+11. the optional branches and the rest of the training recipe at the
+   flagship widths, with the grid mask, the imgseg head, CRP3D (8x8x1
+   mega-voxels on stage 2's 16x16x2 grid) and the point branch on and
+   every loss term (OHEM, Lovasz, dice, LGA, the KL depth loss, imgseg,
+   CRP, point CE and Lovasz): (a) the tree's train frames through an index
+   built with CBGS (frame counts before and after) and the train pipeline
+   with relation labels (16, 16, 2), four bf16 steps at B = 2 with
+   ``with_cp`` and ``debug_grads``: every term present and finite,
+   ``grad_nonfinite`` 0, nonzero gradients in CRP3D, the imgseg head and
+   the point branch, K1 and P1 launched; ms per step and peak memory;
+   (b) one fp32 step at B = 1 with the kernels (K1, P1, K4) and one
+   without: every term within 1e-4 relative, every gradient leaf within
+   2% (floor 1e-4 of the global scale); (c) the streaming loss triple (8
+   Y-slabs) against the full upsample on flagship-shaped fp32 logits and
+   the 256x256x32 labels, within 1e-5 relative, gradient included, with
+   both peak memories; (d) the pipeline with BDA: a 4x4 ``bda``,
+   ``gt_occ`` of its shape with a larger 255 share under a rotation, and
+   the detector's refusal of the 33-wide camera vector; (e) the burn-in
+   tool (``stereoscene_torch/tools/train_burnin.py``) passes its checks;
+   (f) the train CLI with ``model.use_grid_mask=True`` and the OHEM and
+   Lovasz terms takes 2 bf16 steps at B = 1 and logs both terms.
 
 Then one JSON line with each kernel (its launches in the serving, bf16
-training, eval, train CLI and data-parallel runs, each counted from 0 just
+training, eval, train CLI, data-parallel and optional-branch runs, each
+counted from 0 just
 before its run, its
 error, its times and its bound from phases 2-4c; the
 bound is the larger of the bytes it must move over 3.35 TB/s and its
@@ -123,6 +145,7 @@ N_TRAIN_FRAMES = 4  # sequence 00 of the phase 8-9 tree
 N_LIDAR_POINTS = 120_000  # about one HDL-64 sweep
 CLI_EPOCHS = 2  # the flagship config evaluates every 2 epochs
 DP_TIMEOUT_S = 300.0  # phase 10's process group and spawned ranks
+OPTIONAL_STEPS = 4  # phase 11a's bf16 steps at B = 2
 LABEL_SHAPE = (256, 256, 32)
 EVAL_CONFIG = "stereoscene_semantickitti.py"  # the flagship's config file
 # H100 SXM datasheet peaks (dense, without sparsity)
@@ -1494,6 +1517,379 @@ def phase_train(cfg, dev, build, train, seeded_init_, model_cls) -> dict:
     return launches
 
 
+def optional_config():
+    """The flagship widths with every optional switch of the JAX package
+    on: the grid mask, the imgseg head, CRP3D on stage 2's 16x16x2 grid
+    (8x8x1 mega-voxels) and the point branch."""
+    from stereoscene_torch.models.detector import DetectorConfig
+
+    return DetectorConfig(use_grid_mask=True, imgseg=True, crp3d=True,
+                          crp_mega_shape=(8, 8, 1), supervise_points=True)
+
+
+def every_term(cfg, **kw):
+    """A LossConfig with every optional term on, the KL depth loss."""
+    from stereoscene_torch.engine.train import LossConfig
+
+    return LossConfig(downsample=cfg.downsample, dbound=cfg.dbound,
+                      voxel_ohem=1.0, voxel_lovasz=1.0, voxel_dice=1.0,
+                      voxel_lga=1.0, loss_depth_type="kld",
+                      loss_seg_weight=1.0, loss_crp_weight=1.0,
+                      loss_point_ce_weight=1.0,
+                      loss_point_lovasz_weight=1.0, **kw)
+
+
+OPTIONAL_TERMS = (
+    "loss_voxel_ce_0", "loss_voxel_sem_scal_0", "loss_voxel_geo_scal_0",
+    "loss_voxel_ohem_0", "loss_voxel_lovasz_0", "loss_voxel_dice_0",
+    "loss_voxel_lga_0", "loss_depth", "loss_imgseg", "loss_rel_ce",
+    "loss_point_ce", "loss_point_lovasz")
+NEW_PARAMS = ("img_bev_encoder_backbone.cp_mega_voxels.", "imgseg_",
+              "pts_bbox_head.point_occ_mlp.")
+
+
+def optional_batches(cfg, tree: tuple, n: int) -> tuple:
+    """``n`` train batches of B = 2 from the tree's train frames, through
+    an index built with CBGS and the flagship train pipeline with LiDAR
+    depth and the relation labels of stage 2's grid (16, 16, 2). Returns
+    (batches, frames before CBGS, frames after)."""
+    import stereoscene_torch
+    from stereoscene_torch.config import Config
+    from stereoscene_torch.data import (
+        BatchLoader,
+        PipelineConfig,
+        SemanticKittiIndex,
+        SemanticKittiPipeline,
+    )
+
+    root, ann, lidar_root = tree
+    conf = Config.fromfile(os.path.join(
+        os.path.dirname(stereoscene_torch.__file__), "configs", EVAL_CONFIG))
+    dcfg = conf["data_config"]
+    kw = dict(data_root=root, ann_file=ann, split="train",
+              lidar_root=lidar_root, lidarseg_root=lidar_root, seed=SEED)
+    plain = len(SemanticKittiIndex(**kw))
+    index = SemanticKittiIndex(cbgs=True, **kw)
+    pipe = SemanticKittiPipeline(PipelineConfig(
+        input_size=tuple(dcfg["input_size"]), resize=tuple(dcfg["resize"]),
+        rot=tuple(dcfg["rot"]), flip=dcfg["flip"],
+        crop_h=tuple(dcfg["crop_h"]), is_train=True, load_lidar_depth=True,
+        point_cloud_range=tuple(conf["point_cloud_range"]),
+        relation_label_shape=(16, 16, 2)), seed=SEED)
+    loader = BatchLoader(index.frames, pipe, batch_size=2, shuffle=True,
+                         seed=SEED, num_workers=4)
+    if len(loader) == 0:
+        raise AssertionError(f"CBGS left {len(index)} frames")
+    batches = []
+    while len(batches) < n:
+        batches.extend(loader)
+    return batches[:n], plain, len(index)
+
+
+def phase_optional(dev, build, card: str, tmp: str, tree: tuple) -> dict:
+    """Phase 11: the optional branches and the rest of the training
+    recipe at the flagship widths (a-f of the module docstring). Returns
+    the launches of its runs (a, e and f)."""
+    from stereoscene_torch.engine import train
+    from stereoscene_torch.engine.loop import step_generator, to_device
+    from stereoscene_torch.models.detector import BEVDepthOccupancy
+    from stereoscene_torch.utils.weights import seeded_init_
+
+    cfg = optional_config()
+    launches = collections.Counter()
+
+    # (a) training from data: CBGS index, relation labels, every term
+    t0 = time.perf_counter()
+    batches, n_plain, n_cbgs = optional_batches(cfg, tree, OPTIONAL_STEPS)
+    data_s = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    model = BEVDepthOccupancy(cfg, device=dev)
+    seeded_init_(model, SEED)
+    state = train.create_train_state(model, device=dev)
+    step = train.make_train_step(every_term(cfg), bf16=True,
+                                 debug_grads=True)
+    new_grads = {}
+    apply = train.apply_gradients
+
+    def record(state, grads):
+        if not new_grads:
+            for (name, _), g in zip(state.trainable, grads):
+                if name.startswith(NEW_PARAMS):
+                    new_grads[name] = float(g.abs().max())
+        apply(state, grads)
+
+    train.apply_gradients = record
+    logs, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    try:
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, out = step(state, to_device(batch, dev),
+                              step_generator(SEED, state.step, dev))
+            logs.append({k: float(v) for k, v in out.items()})
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        train.apply_gradients = apply
+    counts = dict(build.launch_counts)
+    launches.update(counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, out in enumerate(logs):
+        missing = [k for k in OPTIONAL_TERMS if k not in out]
+        if missing or not all(math.isfinite(v) for v in out.values()):
+            raise AssertionError(f"phase 11a step {i}: missing {missing} or "
+                                 f"non-finite {out}")
+        if out["grad_nonfinite"] != 0:
+            raise AssertionError(f"phase 11a step {i}: grad_nonfinite "
+                                 f"{out['grad_nonfinite']}")
+    zero = [n for n, v in new_grads.items() if not v > 0]
+    if zero or not all(any(n.startswith(p) for n in new_grads)
+                       for p in NEW_PARAMS):
+        raise AssertionError(f"phase 11a: zero or missing gradients {zero}")
+    if counts.get("gwc_warp", 0) < 1 or counts.get("dcn_gather", 0) < 1:
+        raise AssertionError(f"phase 11a: launches {counts}")
+    terms = [{k: round(v, 4) for k, v in out.items()} for out in logs]
+    largest = {p: max(v for n, v in new_grads.items() if n.startswith(p))
+               for p in NEW_PARAMS}
+    print(f"phase 11a bf16 training with every switch (grid mask, imgseg, "
+          f"CRP3D {cfg.crp_mega_shape}, point branch) and every loss term "
+          f"on {card}: {N_TRAIN_FRAMES} train frames, {n_cbgs} after CBGS "
+          f"(from {n_plain}); {len(batches)} batches of B = 2 with "
+          f"relation labels {tuple(batches[0]['cp_mega_matrix'].shape)} "
+          f"(loaded in {data_s:.1f} s); per step {terms}; new parameters' "
+          f"largest gradient entries {largest}; "
+          f"ms per step {statistics.median(ms[1:]):.1f} (median of the "
+          f"last {len(ms) - 1}; samples {', '.join(f'{t:.1f}' for t in ms)}"
+          f"); peak memory {peak:.2f} GiB; launches {counts}", flush=True)
+    bda_model = model
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (b) fp32 step with the kernels (K1, P1, K4) and without
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    one = {k: v[:1] for k, v in batches[0].items()}
+    runs = []
+    for kernels in (True, False):
+        m = BEVDepthOccupancy(cfg, device=dev, conv3d_kernel=kernels)
+        seeded_init_(m, SEED)
+        st = train.create_train_state(m, device=dev)
+        build.launch_counts.clear()
+        total, losses, grads = train.loss_and_grads(
+            st, to_device(one, dev), every_term(cfg), use_kernel=kernels,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        runs.append((total, losses, grads, dict(build.launch_counts),
+                     [n for n, _ in st.trainable]))
+        del m, st
+    (tk, lk, gk, ck, names), (tp, lp, gp, cp, _) = runs
+    if (ck.get("gwc_warp") != 1 or ck.get("dcn_gather") != 1
+            or ck.get("conv3d_s1", 0) < 12 or cp):
+        raise AssertionError(f"phase 11b launches: kernels {ck}, plain {cp}")
+    off = {k: (float(lk[k]), float(lp[k])) for k in lp
+           if not abs(float(lk[k] - lp[k])) <= 1e-4 * abs(float(lp[k]))}
+    if off or not torch.isfinite(tk):
+        raise AssertionError(f"phase 11b loss terms off: {off}")
+    scale = max(float(g.abs().max()) for g in gp)
+    bad = []
+    for name, a, b in zip(names, gk, gp):
+        leaf = max(float(a.abs().max()), float(b.abs().max()), 1e-6)
+        err = float((a - b).abs().max())
+        if not (math.isfinite(err) and err <= max(2e-2 * leaf, 1e-4 * scale)):
+            bad.append((name, err / leaf))
+    if bad:
+        worst = sorted(bad, key=lambda b: -b[1])[:5]
+        raise AssertionError(f"phase 11b: {len(bad)} of {len(names)} grad "
+                             f"leaves off, worst {worst}")
+    print(f"phase 11b fp32 step with every switch and term, kernels (K1, "
+          f"P1, K4) vs plain, B = 1: loss {float(tk):.6f} vs "
+          f"{float(tp):.6f}, every term within 1e-4 relative; "
+          f"{len(names)} grad leaves within 2% (floor "
+          f"{1e-4 * scale:.2e}); launches {ck}", flush=True)
+    del runs, gk, gp
+
+    # (c) streaming against the full upsample, fp32, flagship logits
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    logits0 = torch.randn((2,) + cfg.grid_shape + (cfg.out_channel,),
+                          generator=gen, device=dev) * 2
+    gt = torch.as_tensor(batches[0]["gt_occ"]).to(dev)
+    found = {}
+    for chunks in (8, 0):
+        logits = logits0.clone().requires_grad_()
+        lc = train.LossConfig(stream_voxel_chunks=chunks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses = train.compute_losses({"output_voxels": logits},
+                                      {"gt_occ": gt}, lc)
+        (grad,) = torch.autograd.grad(sum(losses.values()), logits)
+        torch.cuda.synchronize()
+        found[chunks] = ({k: float(v) for k, v in losses.items()}, grad,
+                         (torch.cuda.max_memory_allocated() - base) / 2**30)
+    (ls, gs, ps), (lf, gf, pf) = found[8], found[0]
+    off = {k: (ls[k], lf[k]) for k in lf
+           if not abs(ls[k] - lf[k]) <= 1e-5 * abs(lf[k])}
+    gerr = float((gs - gf).abs().max() / gf.abs().max())
+    if off or len(ls) != 3 or not gerr <= 1e-5:
+        raise AssertionError(f"phase 11c streaming vs full: {off}, "
+                             f"gradient {gerr:.2e}")
+    print(f"phase 11c streaming losses (8 Y-slabs) vs the full upsample, "
+          f"fp32 logits {tuple(logits0.shape)} against labels "
+          f"{tuple(gt.shape)}: {ls} vs {lf}; gradient within {gerr:.2e} "
+          f"of its scale; peak memory above the inputs {ps:.3f} GiB "
+          f"streaming, {pf:.3f} GiB full", flush=True)
+    del found, gs, gf, logits0
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+
+    # (d) BDA: the pipeline's 4x4 matrix and rotated labels; the detector
+    # refuses the 33-wide camera vector, as the JAX package's does
+    phase_bda(cfg, tree, bda_model, dev)
+    del bda_model, model
+    torch.cuda.empty_cache()
+
+    # (e) the burn-in tool
+    from stereoscene_torch.tools import train_burnin
+
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    summary = train_burnin.main(["--device", dev.type])
+    burnin_s = time.perf_counter() - t0
+    launches.update(build.launch_counts)
+    if not summary["ok"]:
+        raise AssertionError(f"phase 11e burn-in: {summary['checks']}")
+    print(f"phase 11e burn-in (stereoscene_torch/tools/train_burnin.py, "
+          f"{summary['steps']} bf16 steps of the flagship at B = 1, lr "
+          f"{summary['lr']}) on {card}: checks {summary['checks']}; loss "
+          f"{summary['loss_first']:.4f} -> {summary['loss_last']:.4f} "
+          f"(first 10 mean {summary['loss_first10_mean']:.4f}, last 10 "
+          f"{summary['loss_last10_mean']:.4f}); grad norm "
+          f"{summary['grad_norm_first']:.3f} -> "
+          f"{summary['grad_norm_last']:.3f}; ms per step "
+          f"{summary['step_ms']:.1f}; whole run {burnin_s:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # (f) the train CLI with the grid mask and the OHEM and Lovasz terms
+    launches.update(phase_optional_cli(dev, build, card, tmp, tree))
+    return dict(launches)
+
+
+def phase_bda(cfg, tree: tuple, model, dev) -> None:
+    """Phase 11d (see ``phase_optional``)."""
+    import stereoscene_torch
+    from stereoscene_torch.config import Config
+    from stereoscene_torch.data import (
+        PipelineConfig,
+        SemanticKittiIndex,
+        SemanticKittiPipeline,
+    )
+    from stereoscene_torch.engine.loop import to_device
+
+    root, ann, _ = tree
+    conf = Config.fromfile(os.path.join(
+        os.path.dirname(stereoscene_torch.__file__), "configs", EVAL_CONFIG))
+    dcfg = conf["data_config"]
+    pipe = SemanticKittiPipeline(PipelineConfig(
+        input_size=tuple(dcfg["input_size"]), is_train=True, apply_bda=True,
+        point_cloud_range=tuple(conf["point_cloud_range"])), seed=SEED)
+    frames = SemanticKittiIndex(root, ann, "train").frames
+    shares = []
+    for i, frame in enumerate(frames):
+        sample = pipe(frame, seed=SEED + i)
+        raw = np.load(frame.voxel_path)
+        bda = sample["bda"]
+        angle = math.degrees(math.atan2(bda[1, 0], abs(bda[0, 0])))
+        if bda.shape != (4, 4) or sample["gt_occ"].shape != raw.shape:
+            raise AssertionError(f"phase 11d: bda {bda.shape}, gt_occ "
+                                 f"{sample['gt_occ'].shape}")
+        shares.append((round(angle, 2), float((raw == 255).mean()),
+                       float((sample["gt_occ"] == 255).mean())))
+        if abs(angle) > 1.0 and not shares[-1][2] > shares[-1][1]:
+            raise AssertionError(f"phase 11d: 255 share {shares[-1]}")
+    batch = to_device({k: np.asarray(v)[None] for k, v in sample.items()},
+                      dev)
+    model.eval()
+    try:
+        model(batch)
+    except ValueError as err:
+        refusal = str(err)
+    else:
+        raise AssertionError("phase 11d: the detector took a 4x4 bda")
+    if "33" not in refusal:
+        raise AssertionError(f"phase 11d: refusal {refusal!r}")
+    print(f"phase 11d BDA on {len(frames)} train frames: bda 4x4, gt_occ "
+          f"{tuple(sample['gt_occ'].shape)}; (rotation deg, 255 share "
+          f"before, after) {shares}; the detector refuses the batch: "
+          f"{refusal!r}", flush=True)
+
+
+def phase_optional_cli(dev, build, card: str, tmp: str, tree: tuple) -> dict:
+    """Phase 11f: the train CLI on the flagship config with
+    ``model.use_grid_mask=True`` and the OHEM and Lovasz voxel terms, B = 1
+    in bf16 over two train frames (one epoch: two steps). Returns its
+    launches."""
+    import stereoscene_torch
+    from stereoscene_torch.tools import train as train_cli
+
+    root, ann, lidar_root = tree
+    # a tree of the first two train frames, linked to the phase 8-9 tree
+    sub = os.path.join(tmp, "two_frames")
+    seq = os.path.join(sub, "dataset", "sequences", "00")
+    src = os.path.join(root, "dataset", "sequences", "00")
+    os.makedirs(os.path.join(sub, "labels", "00"))
+    os.makedirs(seq)
+    os.symlink(os.path.join(src, "calib.txt"), os.path.join(seq, "calib.txt"))
+    for fid in ("000000", "000001"):
+        for d, ext in (("image_2", ".png"), ("image_3", ".png"),
+                       ("voxels", ".bin"), ("velodyne", ".bin"),
+                       ("labels", ".label")):
+            os.makedirs(os.path.join(seq, d), exist_ok=True)
+            os.symlink(os.path.join(src, d, fid + ext),
+                       os.path.join(seq, d, fid + ext))
+        os.symlink(os.path.join(ann, "00", f"{fid}_1_1.npy"),
+                   os.path.join(sub, "labels", "00", f"{fid}_1_1.npy"))
+    config = os.path.join(os.path.dirname(stereoscene_torch.__file__),
+                          "configs", EVAL_CONFIG)
+    loss_w = "model.pts_bbox_head.semkitti_loss_weight_cfg"
+    lidar = os.path.join(sub, "dataset", "sequences")
+    steps = []
+    work_dir = os.path.join(tmp, "train_cli_optional")
+    build.launch_counts.clear()
+    train_cli.main(
+        [config, "--work-dir", work_dir, "--device", dev.type, "--bf16",
+         "--batch-size", "1", "--max-epochs", "1", "--deterministic-data",
+         "--cfg-options", f"data.train.data_root={sub}",
+         f"data.train.ann_file={os.path.join(sub, 'labels')}",
+         f"lidar_root={lidar}", f"lidarseg_root={lidar}",
+         "model.use_grid_mask=True", f"{loss_w}.voxel_ohem=1.0",
+         f"{loss_w}.voxel_lovasz=1.0"],
+        hooks=[lambda state, epoch, it, logs: steps.append(
+            (state.model.cfg.use_grid_mask,
+             {k: float(v) for k, v in logs.items()}))])
+    launches = dict(build.launch_counts)
+    with open(os.path.join(work_dir, "train_log.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    logged = [r for r in logged if "loss_total" in r]
+    if (len(steps) != 2 or not all(g for g, _ in steps) or not logged
+            or not all(k in logged[0] for k in ("loss_voxel_ohem_0",
+                                                "loss_voxel_lovasz_0"))
+            or not all(math.isfinite(v) for _, s in steps
+                       for v in s.values())):
+        raise AssertionError(f"phase 11f: steps {steps}, log {logged}")
+    print(f"phase 11f train CLI on {card} ({EVAL_CONFIG}, "
+          f"--cfg-options model.use_grid_mask=True {loss_w}.voxel_ohem=1.0 "
+          f"{loss_w}.voxel_lovasz=1.0), 2 bf16 steps of B = 1: losses "
+          f"{[{k: round(v, 4) for k, v in s.items()} for _, s in steps]}; "
+          f"train_log.jsonl's first record holds "
+          f"{sorted(k for k in logged[0] if k.startswith('loss'))}; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -1560,6 +1956,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         data_parallel = phase_data_parallel(dev, _build, card, tmp, tree,
                                             phase9)
+        torch.cuda.empty_cache()
+        optional = phase_optional(dev, _build, card, tmp, tree)
     for path, counts, needs in (
             ("serving", serving, ("gwc_warp", "dcn_gather",
                                   "lift_splat_fused")),
@@ -1569,7 +1967,8 @@ def main() -> None:
             ("train CLI", train_cli, ("gwc_warp", "dcn_gather",
                                       "lift_splat_fused")),
             ("data parallel", data_parallel, ("gwc_warp", "dcn_gather",
-                                              "lift_splat_fused"))):
+                                              "lift_splat_fused")),
+            ("optional branches", optional, ("gwc_warp", "dcn_gather"))):
         for name in needs:
             if counts.get(name, 0) < 1:
                 raise AssertionError(f"{name} never launched in {path}")
@@ -1592,7 +1991,7 @@ def main() -> None:
         k["route"] = "cuda"
         k["launches"] = sum(run.get(k["name"], 0)
                             for run in (serving, training, evaluation,
-                                        train_cli, data_parallel))
+                                        train_cli, data_parallel, optional))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,18 +11,17 @@ PIL on the host CPU):
   track the 3x3 post-augmentation homography (post_rot/post_tran); both eyes
   share one augmentation draw (ref :248); mmlab mean/std normalization
   (ref: loading_bevdet.py:19-34).
-- ``LoadSemKittiAnnotation`` (ref :358-402): voxel labels, with the BEV
-  augmentation matrix ``bda`` the identity.
+- ``LoadSemKittiAnnotation`` (ref :358-402): voxel labels + BEV aug matrix
+  (bda; identity when apply_bda=False as in the active config; with it, a
+  4x4 matrix and the labels rotated and flipped to match), and the CRP
+  relation labels (ref voxel_labels.py:66 CreateRelationLabels) when
+  ``relation_label_shape`` is set.
 - ``CreateDepthFromLiDAR`` (ref: datasets/pipelines/occ_to_depth.py:190-345):
   project the velodyne points through each camera, keep the in-image
   points, write them far first so that the NEAREST return wins each pixel,
   and produce the sparse depth map, the labeled point set (points_occ),
   their normalized uv (points_uv) and an image-seg map. Numpy only: the JAX
   package's optional native scatter is not ported.
-
-Two training-data branches of the JAX pipeline (BEV augmentation, CRP
-relation labels) are not ported yet: a config that turns one on raises
-``NotImplementedError``.
 
 The output dict uses plain numpy arrays; ``loader.BatchLoader`` stacks them.
 """
@@ -34,7 +33,12 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from .labels import seg_remap_lut
+from .augment import bev_transform_labels, bev_transform_matrix
+from .labels import (
+    compute_cp_mega_matrix,
+    downsample_label_monoscene,
+    seg_remap_lut,
+)
 from .semantic_kitti import FrameInfo
 
 IMG_MEAN = np.array([123.675, 116.28, 103.53], np.float32)  # RGB
@@ -55,10 +59,16 @@ class PipelineConfig:
     load_lidar_depth: bool = False
     max_points: int = 65536  # static shape for points_occ/points_uv
     point_cloud_range: Tuple[float, ...] = (0, -25.6, -2, 51.2, 25.6, 4.4)
+    # BEV data augmentation (ref loading_semkitti.py:358-402; apply_bda
+    # defaults False in the active config)
     apply_bda: bool = False
     bda_rot_lim: Tuple[float, float] = (-22.5, 22.5)
     bda_flip_dx_ratio: float = 0.5
     bda_flip_dy_ratio: float = 0.5
+    # CRP relation-label GT (ref voxel_labels.py:66 CreateRelationLabels):
+    # when set, gt_occ is MonoScene-downsampled to this shape and the
+    # 4-way voxel<->mega-voxel relation matrix is emitted as
+    # sample['cp_mega_matrix'] for the crp_relation_loss.
     relation_label_shape: Optional[Tuple[int, int, int]] = None
 
 
@@ -152,23 +162,16 @@ def project_lidar_to_image(
 class SemanticKittiPipeline:
     """FrameInfo -> model batch sample (numpy dict): imgs [2, H, W, 3]
     normalised, rots / trans / intrins / post_rots / post_trans per eye,
-    bda [3, 3], calib, gt_occ where the frame has labels, and with
-    ``load_lidar_depth`` the LiDAR products of ``_lidar_products`` where the
-    frame has a scan.
+    bda ([3, 3] identity, or [4, 4] under ``apply_bda`` in training), calib,
+    gt_occ where the frame has labels (with cp_mega_matrix under
+    ``relation_label_shape``), and with ``load_lidar_depth`` the LiDAR
+    products of ``_lidar_products`` where the frame has a scan.
 
     ``BatchLoader`` runs this from several worker threads and passes a
     deterministic per-sample ``seed``, so every augmentation draw is
     independent of thread scheduling; ``self.rng`` serves direct calls."""
 
     def __init__(self, cfg: PipelineConfig, seed: int = 0):
-        off = [name for name, on in (
-            ("apply_bda", cfg.apply_bda and cfg.is_train),
-            ("relation_label_shape", cfg.relation_label_shape is not None))
-            if on]
-        if off:
-            raise NotImplementedError(
-                f"stereoscene_torch does not port the training-data "
-                f"branches {off} yet")
         self.cfg = cfg
         self.rng = np.random.RandomState(seed)
         self._seg_lut = seg_remap_lut()
@@ -214,8 +217,36 @@ class SemanticKittiPipeline:
             "bda": np.eye(3, dtype=np.float32),
             "calib": np.float32(frame.calib),
         }
-        if frame.voxel_path is not None:
-            sample["gt_occ"] = np.load(frame.voxel_path).astype(np.int32)
+
+        gt_occ = (
+            np.load(frame.voxel_path).astype(np.int32)
+            if frame.voxel_path is not None
+            else None
+        )
+
+        if cfg.apply_bda and cfg.is_train:
+            # drawn after the image augmentation, from the same generator
+            rot_deg = rng.uniform(*cfg.bda_rot_lim)
+            flip_dx = rng.rand() < cfg.bda_flip_dx_ratio
+            flip_dy = rng.rand() < cfg.bda_flip_dy_ratio
+            pc = np.asarray(cfg.point_cloud_range, np.float32)
+            center = (pc[:3] + pc[3:]) / 2.0
+            bda4 = bev_transform_matrix(rot_deg, flip_dx, flip_dy, center)
+            sample["bda"] = bda4.astype(np.float32)  # [4, 4]
+            if gt_occ is not None:
+                gt_occ = bev_transform_labels(
+                    gt_occ.astype(np.uint8), rot_deg, flip_dx, flip_dy
+                ).astype(np.int32)
+
+        if gt_occ is not None:
+            sample["gt_occ"] = gt_occ
+            if cfg.relation_label_shape is not None:
+                shape = tuple(cfg.relation_label_shape)
+                ds = tuple(g // s for g, s in zip(gt_occ.shape, shape))
+                target = downsample_label_monoscene(
+                    gt_occ.astype(np.uint8), ds
+                )
+                sample["cp_mega_matrix"] = compute_cp_mega_matrix(target)
         if cfg.load_lidar_depth and frame.lidar_path is not None:
             sample.update(self._lidar_products(frame, sample))
         return sample

@@ -5,8 +5,9 @@ nothing of the JAX package), the rebuild of ``CustomSemanticKITTIDataset`` /
 ``CustomSemanticKITTILssDataset`` (ref: datasets/semantic_kitti_dataset.py:
 59-154, datasets/semantic_kitti_lss_dataset.py:25-229): scans KITTI odometry
 sequences, parses calib.txt into P2/P3/Tr, derives the stereo ``calib``
-scalar fx2 * dynamic_baseline, and exposes per-frame records. The CBGS
-class-balanced resampling of training is not ported yet.
+scalar fx2 * dynamic_baseline, and exposes per-frame records. Also the
+CBGS class-balanced resampling (ref lss_dataset.py:80-118), drawn from the
+one ``RandomState(seed)`` that ``repeat``'s shuffle draws from first.
 
 Pure numpy/host code.
 """
@@ -109,12 +110,13 @@ class SemanticKittiIndex:
         self.lidar_root = lidar_root
         self.lidarseg_root = lidarseg_root
         self.frames: List[FrameInfo] = self._load()
-        if cbgs:
-            raise NotImplementedError(
-                "stereoscene_torch does not port CBGS resampling yet")
+        # one generator for both draws, in this order, as in the JAX index
+        rng = np.random.RandomState(seed)
         if repeat > 1:
             self.frames = self.frames * repeat
-            np.random.RandomState(seed).shuffle(self.frames)
+            rng.shuffle(self.frames)
+        if cbgs:
+            self.frames = self._class_balanced_resample(rng)
 
     def _load(self) -> List[FrameInfo]:
         frames = []
@@ -168,6 +170,38 @@ class SemanticKittiIndex:
                     )
                 )
         return frames
+
+    def _class_balanced_resample(self, rng) -> List[FrameInfo]:
+        """CBGS resampling by per-frame class histograms
+        (ref: semantic_kitti_lss_dataset.py:80-118)."""
+        counts = []
+        for fr in self.frames:
+            if fr.voxel_path is None:
+                counts.append(np.zeros(19))
+                continue
+            occ = np.load(fr.voxel_path)
+            hist = np.bincount(
+                occ[occ != 255].reshape(-1).astype(np.int64), minlength=20
+            )
+            counts.append(hist[1:])
+        counts = np.stack(counts)  # [N, 19]
+
+        class_sum = counts.sum(axis=0)
+        dist = class_sum / max(class_sum.sum(), 1)
+        ratios = np.log(1 + (1.0 / len(class_sum)) / np.maximum(dist, 1e-12))
+
+        sampled: List[int] = []
+        for cls in range(len(class_sum)):
+            valid = counts[:, cls] > 0
+            idxs = np.nonzero(valid)[0]
+            if len(idxs) == 0:
+                continue
+            pts = counts[valid, cls].astype(np.float64)
+            prob = pts / pts.sum()
+            expectation = (prob * pts).sum()
+            n = int(class_sum[cls] * ratios[cls] / max(expectation, 1e-12))
+            sampled.extend(rng.choice(idxs, size=n, p=prob))
+        return [self.frames[i] for i in sampled]
 
     def __len__(self):
         return len(self.frames)

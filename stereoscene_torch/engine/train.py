@@ -1,16 +1,18 @@
 """The training step, port of ``stereoscene_tpu/engine/train.py``.
 
-- ``compute_losses`` (train.py:203-367): the active recipe, voxel CE +
-  sem_scal + geo_scal on the logits upsampled trilinearly to the label grid
-  (ref: occhead.py:291-343), plus the BCE depth loss. The terms the recipe
-  leaves off (ohem, lovasz, dice, lga, kld, imgseg, CRP, point, streaming)
-  are not ported and raise.
+- ``compute_losses`` (train.py:203-367): every term of the JAX package,
+  under its names: voxel CE + sem_scal + geo_scal on the logits upsampled
+  trilinearly to the label grid (ref: occhead.py:291-343), or their
+  streaming evaluation (``stream_voxel_chunks``), the optional OHEM,
+  Lovasz, dice and LGA voxel terms, the BCE or KL depth loss, the imgseg
+  CE, the CRP relation loss and the point CE and Lovasz losses.
 - ``create_train_state`` (:122-168): AdamW (lr 1e-4, wd 0.01) after a
   global-norm clip at 5, the step LR of ``step_lr_schedule`` (:65-84) with
   optional linear warmup, frozen parameters (``efficientnet_frozen_predicate``)
   and gradient accumulation (``accumulate_steps``, optax ``MultiSteps``:
   the mean of k gradients makes one update).
-- ``make_train_step`` (:370-430): value and gradient, then the update. The
+- ``make_train_step`` (:370-430): value and gradient, then the update
+  (``debug_grads`` logs the gradient norm and its nonfinite entries). The
   bf16 policy keeps fp32 master parameters and runs the forward and
   backward on bf16 copies, so gradients land on the masters in fp32;
   losses, norms and softmaxes stay fp32. The copies stand in the modules
@@ -45,10 +47,17 @@ from ..losses import (
     ce_ssc_loss,
     class_weights_from_frequencies,
     geo_scal_loss,
+    klv_depth_loss,
+    lovasz_softmax,
+    ohem_ce_ssc_loss,
+    position_aware_loss,
     sem_scal_loss,
+    soft_dice_loss,
 )
+from ..losses.streaming import streaming_voxel_losses
+from ..models.crp3d import crp_relation_loss
 from ..ops.resize import resize_trilinear
-from ..parallel import reduce_gradients
+from ..parallel import all_sum, reduce_gradients
 
 
 def step_lr_schedule(
@@ -165,42 +174,134 @@ class LossConfig:
     stream_voxel_chunks: int = 0
 
 
-_NOT_PORTED = ("voxel_ohem", "voxel_lovasz", "voxel_dice", "voxel_lga",
-               "loss_seg_weight", "loss_crp_weight", "loss_point_ce_weight",
-               "loss_point_lovasz_weight", "stream_voxel_chunks")
-
-
 def compute_losses(outputs: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor],
                    cfg: LossConfig) -> Dict[str, torch.Tensor]:
     """All loss terms of one batch, named as the JAX package names them.
     ``outputs['output_voxels']`` is the logits [B, X, Y, Z, C] (the single
     level ``0``); ``batch['gt_occ']`` is [B, X', Y', Z'] with 255 = ignore,
-    ``batch['gt_depth']`` [B, N, H, W] sparse LiDAR depth."""
-    off = [f for f in _NOT_PORTED if getattr(cfg, f)]
-    if off or cfg.loss_depth_type != "bce":
-        raise NotImplementedError(
-            f"stereoscene_torch ports the active recipe only; set "
-            f"{off or ['loss_depth_type']} to its default")
+    ``batch['gt_depth']`` [B, N, H, W] sparse LiDAR depth. Each term that
+    divides by a count divides by the global batch's over the ranks."""
     losses = {}
+    class_weights = class_weights_from_frequencies()
     gt = batch["gt_occ"]
     logits = outputs["output_voxels"]
-    if logits.shape[1:4] != gt.shape[1:4]:
-        logits = resize_trilinear(logits.float(), tuple(gt.shape[1:4]))
-    if cfg.voxel_ce > 0:
-        losses["loss_voxel_ce_0"] = cfg.voxel_ce * ce_ssc_loss(
-            logits, gt, class_weights_from_frequencies())
-    if cfg.voxel_sem_scal > 0:
-        losses["loss_voxel_sem_scal_0"] = (
-            cfg.voxel_sem_scal * sem_scal_loss(logits, gt))
-    if cfg.voxel_geo_scal > 0:
-        losses["loss_voxel_geo_scal_0"] = (
-            cfg.voxel_geo_scal * geo_scal_loss(logits, gt))
+    if cfg.stream_voxel_chunks > 0:
+        if any((cfg.voxel_ohem, cfg.voxel_lovasz, cfg.voxel_dice,
+                cfg.voxel_lga)):
+            raise ValueError(
+                "stream_voxel_chunks only covers ce/sem_scal/geo_scal; "
+                "disable ohem/lovasz/dice/lga or the streaming path")
+        terms = streaming_voxel_losses(logits, gt, class_weights,
+                                       cfg.stream_voxel_chunks)
+        for name in ("ce", "sem_scal", "geo_scal"):
+            weight = getattr(cfg, f"voxel_{name}")
+            if weight > 0:
+                losses[f"loss_voxel_{name}_0"] = weight * terms[name]
+    else:
+        if logits.shape[1:4] != gt.shape[1:4]:
+            logits = resize_trilinear(logits.float(), tuple(gt.shape[1:4]))
+        if cfg.voxel_ce > 0:
+            losses["loss_voxel_ce_0"] = cfg.voxel_ce * ce_ssc_loss(
+                logits, gt, class_weights)
+        if cfg.voxel_sem_scal > 0:
+            losses["loss_voxel_sem_scal_0"] = (
+                cfg.voxel_sem_scal * sem_scal_loss(logits, gt))
+        if cfg.voxel_geo_scal > 0:
+            losses["loss_voxel_geo_scal_0"] = (
+                cfg.voxel_geo_scal * geo_scal_loss(logits, gt))
+        if cfg.voxel_ohem > 0:
+            losses["loss_voxel_ohem_0"] = cfg.voxel_ohem * ohem_ce_ssc_loss(
+                logits, gt, class_weights, cfg.ohem_topk)
+        if cfg.voxel_lovasz > 0 or cfg.voxel_dice > 0:
+            probs = torch.softmax(logits.float(), dim=-1)
+            if cfg.voxel_lovasz > 0:
+                losses["loss_voxel_lovasz_0"] = cfg.voxel_lovasz * (
+                    lovasz_softmax(probs, gt, ignore=255))
+            if cfg.voxel_dice > 0:
+                losses["loss_voxel_dice_0"] = cfg.voxel_dice * (
+                    soft_dice_loss(1.0 - probs[..., 0], gt))
+        if cfg.voxel_lga > 0:
+            losses["loss_voxel_lga_0"] = cfg.voxel_lga * (
+                position_aware_loss(logits, gt, class_weights))
+
     if cfg.loss_depth_weight > 0 and "gt_depth" in batch:
         dp = outputs["depth_prob"].permute(0, 2, 3, 1)  # [B, fH, fW, D]
-        losses["loss_depth"] = cfg.loss_depth_weight * bce_depth_loss(
+        depth_loss = (klv_depth_loss if cfg.loss_depth_type == "kld"
+                      else bce_depth_loss)
+        losses["loss_depth"] = cfg.loss_depth_weight * depth_loss(
             batch["gt_depth"][:, :1], dp, cfg.downsample, cfg.dbound)
+
+    if (cfg.loss_seg_weight > 0
+            and outputs.get("imgseg_logits") is not None
+            and "img_seg" in batch):
+        losses["loss_imgseg"] = cfg.loss_seg_weight * _imgseg_loss(
+            outputs["imgseg_logits"], batch["img_seg"][:, 0], class_weights)
+
+    if (cfg.loss_crp_weight > 0 and outputs.get("crp_logits") is not None
+            and "cp_mega_matrix" in batch):
+        losses["loss_rel_ce"] = cfg.loss_crp_weight * crp_relation_loss(
+            outputs["crp_logits"], batch["cp_mega_matrix"])
+
+    if ((cfg.loss_point_ce_weight > 0 or cfg.loss_point_lovasz_weight > 0)
+            and outputs.get("output_points") is not None
+            and "points_occ" in batch):
+        losses.update(_point_losses(outputs["output_points"], batch, cfg))
     return losses
+
+
+def _imgseg_loss(seg_logits, seg_gt, class_weights):
+    """Image-view seg CE (ref :418-430): the left camera's labels
+    nearest-downsampled to the feature grid, class-frequency weighted,
+    label 0 ignored. seg_logits [B, fH, fW, C], seg_gt [B, H, W]."""
+    seg_logits = seg_logits.float()
+    fh, fw = seg_logits.shape[1:3]
+    gh, gw = seg_gt.shape[1:]
+    dev = seg_logits.device
+    ys = (torch.arange(fh, device=dev) * gh) // fh
+    xs = (torch.arange(fw, device=dev) * gw) // fw
+    seg_gt = seg_gt[:, ys][:, :, xs].long()
+    valid = seg_gt != 0
+    safe = torch.where(valid, seg_gt, 0)
+    nll = -torch.log_softmax(seg_logits, dim=-1).gather(
+        -1, safe[..., None])[..., 0]
+    w = torch.as_tensor(class_weights, dtype=torch.float32,
+                        device=dev)[safe]
+    w = torch.where(valid, w, torch.zeros_like(w))
+    num, den = all_sum(torch.stack([(nll * w).sum(), w.sum()]))
+    return num / den.clamp_min(1e-12)
+
+
+def _point_losses(point_logits, batch, cfg):
+    """Point supervision (ref occhead.py:363-399): the labels column of
+    points_occ is the target, label 0 ignored (the reference's
+    CrossEntropyLoss(ignore_index=0) / lovasz ignore=0), slots past
+    points_count masked out."""
+    out = {}
+    logits = point_logits.float()  # [B, P, C]
+    target = batch["points_occ"][..., -1].long()  # [B, P]
+    p = target.shape[1]
+    if "points_count" in batch:
+        in_count = (torch.arange(p, device=target.device)[None, :]
+                    < batch["points_count"].reshape(-1, 1))
+    else:
+        in_count = torch.ones_like(target, dtype=torch.bool)
+    valid = in_count & (target != 0)
+    if cfg.loss_point_ce_weight > 0:
+        safe = torch.where(valid, target, 0)
+        nll = -torch.log_softmax(logits, dim=-1).gather(
+            -1, safe[..., None])[..., 0]
+        validf = valid.float()
+        num, den = all_sum(torch.stack([(nll * validf).sum(),
+                                        validf.sum()]))
+        out["loss_point_ce"] = cfg.loss_point_ce_weight * (
+            num / den.clamp_min(1.0))
+    if cfg.loss_point_lovasz_weight > 0:
+        # fold the padding into the ignore label (0)
+        labels = torch.where(in_count, target, 0)
+        out["loss_point_lovasz"] = cfg.loss_point_lovasz_weight * (
+            lovasz_softmax(torch.softmax(logits, dim=-1), labels, ignore=0))
+    return out
 
 
 @contextlib.contextmanager
@@ -271,17 +372,32 @@ def apply_gradients(state: TrainState, grads: List[torch.Tensor]) -> None:
     state.updates += 1
 
 
+def grad_diagnostics(grads: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``grad_norm`` (the global L2 norm, fp32) and ``grad_nonfinite``
+    (the count of NaN or infinite entries, as fp32): the JAX step's
+    ``debug_grads`` logs (ref: models/hooks/hooks.py GradChecker)."""
+    grads = [g.float() for g in grads]
+    norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    nonfinite = torch.stack([(~torch.isfinite(g)).sum() for g in grads])
+    return {"grad_norm": norm, "grad_nonfinite": nonfinite.sum().float()}
+
+
 def make_train_step(loss_cfg: LossConfig, bf16: bool = False,
-                    use_kernel=None) -> Callable:
+                    use_kernel=None, debug_grads: bool = False) -> Callable:
     """``train_step(state, batch, generator=None) -> (state, logs)``:
     the loss terms and ``loss_total`` as detached tensors (the global
-    batch's, equal on every rank). ``generator`` seeds DropPath and
-    dropout."""
+    batch's, equal on every rank), with ``debug_grads`` also
+    ``grad_diagnostics`` of the step's gradient (the ranks' mean, before
+    the clip). ``generator`` seeds DropPath and dropout."""
 
     def train_step(state: TrainState, batch, generator=None):
         total, losses, grads = loss_and_grads(
             state, batch, loss_cfg, bf16, use_kernel, generator)
-        apply_gradients(state, reduce_gradients(grads))
-        return state, dict(losses, loss_total=total)
+        grads = reduce_gradients(grads)
+        logs = dict(losses, loss_total=total)
+        if debug_grads:
+            logs.update(grad_diagnostics(grads))
+        apply_gradients(state, grads)
+        return state, logs
 
     return train_step

@@ -105,13 +105,17 @@ def get_mlp_input(
     post_tran: torch.Tensor,
     bda: torch.Tensor,
 ) -> torch.Tensor:
-    """Camera-parameter vector [B, N, 30] for KITTI 3x4 intrinsics and a
-    3x3 ``bda`` (ref: ViewTransformerLSSBEVDepth.py:604-659)."""
+    """Camera-parameter vector [B, N, C_cam] for KITTI 3x4 intrinsics
+    (ref: ViewTransformerLSSBEVDepth.py:604-659): 7 intrinsic entries, 6
+    post-aug entries, 5 bda entries, with a 4x4 ``bda`` its translation
+    column (3), then the flattened 3x4 [rot|tran] sensor-to-ego matrix:
+    30 wide with a 3x3 ``bda``, 33 with a 4x4 one, as the JAX package's
+    ``geometry.get_mlp_input`` (geometry.py:207-208)."""
     b, n = rot.shape[:2]
-    if intrin.shape[-1] != 4 or bda.shape[-1] != 3:
+    if intrin.shape[-1] != 4:
         raise NotImplementedError(
-            "get_mlp_input: only 3x4 (KITTI) intrinsics with a 3x3 bda")
-    bda_n = bda[:, None].expand(b, n, 3, 3)
+            "get_mlp_input: only 3x4 (KITTI) intrinsics")
+    bda_n = bda[:, None].expand((b, n) + tuple(bda.shape[-2:]))
     feats = [
         intrin[:, :, 0, 0], intrin[:, :, 1, 1],
         intrin[:, :, 0, 2], intrin[:, :, 1, 2],
@@ -121,9 +125,11 @@ def get_mlp_input(
         bda_n[:, :, 0, 0], bda_n[:, :, 0, 1], bda_n[:, :, 1, 0],
         bda_n[:, :, 1, 1], bda_n[:, :, 2, 2],
     ]
+    parts = [torch.stack(feats, dim=-1)]
+    if bda.shape[-1] == 4:
+        parts.append(bda_n[:, :, :3, -1])
     sensor2ego = torch.cat([rot, tran.reshape(b, n, 3, 1)], dim=-1)
-    return torch.cat(
-        [torch.stack(feats, dim=-1), sensor2ego.reshape(b, n, 12)], dim=-1)
+    return torch.cat(parts + [sensor2ego.reshape(b, n, 12)], dim=-1)
 
 
 def voxel_indices(

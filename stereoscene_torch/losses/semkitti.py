@@ -1,7 +1,9 @@
 """SemanticKITTI SSC losses, port of ``stereoscene_tpu/losses/semkitti.py``
 (ref: projects/mmdet3d_plugin/utils/semkitti.py): the class weights
 (semkitti.py:8-31), weighted cross-entropy (:140-149), and the scene-class
-affinity losses ``sem_scal`` (:93-137) and ``geo_scal`` (:67-91).
+affinity losses ``sem_scal`` (:93-137) and ``geo_scal`` (:67-91), the
+masked KL ``kl_sep`` (:57-64) and the online-hard-example-mining CE
+``ohem_ce_ssc_loss`` (:151-185).
 
 Layouts are the JAX package's: ``logits`` channels-last [B, X, Y, Z, C],
 ``target`` [B, X, Y, Z] with 255 = ignore. Every reduction is fp32
@@ -108,3 +110,48 @@ def sem_scal_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
               + torch.where(not_t_sum > 0, _neg_log(specificity), zero))
     present = (t_sum > 0).float()
     return (loss_c * present).sum() / present.sum().clamp_min(1.0)
+
+
+def _safe_log(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x.clamp_min(_EPS)).clamp_min(_LOG_CLAMP)
+
+
+def kl_sep(p: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """KL divergence restricted to entries where target != 0
+    (ref: semkitti.py:57-64, torch F.kl_div(log(p), t, reduction='sum'));
+    a sum, so pooled over the ranks."""
+    p = p.float()
+    target = target.float()
+    mask = (target != 0).float()
+    per_elem = target * (_safe_log(target) - _safe_log(p))
+    return all_sum((per_elem * mask).sum())
+
+
+def ohem_ce_ssc_loss(logits: torch.Tensor, target: torch.Tensor,
+                     class_weights, top_k: float = 0.25) -> torch.Tensor:
+    """Online hard-example mining CE (ref: semkitti.py:151-185): per
+    sample, the top ``floor(n_valid * top_k)`` weighted losses of its valid
+    voxels, summed over the batch and normalised by the sum of their class
+    weights (clamped at 1e-4). The selection is per sample, so over ranks
+    the two sums pool."""
+    c = logits.shape[-1]
+    b = logits.shape[0]
+    logp = torch.log_softmax(logits.float().reshape(b, -1, c), dim=-1)
+    t = target.reshape(b, -1).long()
+    valid = t != 255
+    safe = torch.where(valid, t, 0)
+    nll = -logp.gather(2, safe[..., None])[..., 0]
+    w = torch.as_tensor(class_weights, dtype=torch.float32,
+                        device=logits.device)[safe]
+    per_voxel = torch.where(valid, nll * w,
+                            torch.full_like(nll, -float("inf")))
+    sorted_loss, order = torch.sort(per_voxel, dim=1, descending=True)
+    sorted_w = torch.where(valid, w, torch.zeros_like(w)).gather(1, order)
+    k = torch.floor(valid.sum(1).float() * top_k).long()
+    keep = torch.arange(per_voxel.shape[1], device=logits.device)[None] \
+        < k[:, None]
+    zero = torch.zeros_like(sorted_w)
+    topk_sum, weight_sum = all_sum(torch.stack([
+        torch.where(keep, sorted_loss, zero).sum(),
+        torch.where(keep, sorted_w, zero).sum()]))
+    return topk_sum / weight_sum.clamp_min(1e-4)

@@ -118,9 +118,20 @@ class DepthNet(nn.Module):
             ASPP(mid, mid), DeformConvPack(mid),
             nn.Conv2d(mid, depth_channels, 1))
 
+    def check_camera_width(self, mlp_input: torch.Tensor) -> None:
+        """Refuse a camera vector of another width than ``cam_channels``:
+        a 4x4 ``bda`` makes it 33 wide (``geometry.get_mlp_input``), which
+        the JAX package's GroupNorm(2) refuses too."""
+        if mlp_input.shape[-1] != self.bn.num_channels:
+            raise ValueError(
+                f"DepthNet takes a camera vector {self.bn.num_channels} "
+                f"wide (cam_channels), got {mlp_input.shape[-1]}: a 4x4 "
+                f"bda (apply_bda) widens it to 33")
+
     def forward(self, x, mlp_input, generator=None, use_kernel=None):
         """``generator`` seeds the ASPP dropout in training mode;
         ``use_kernel`` goes to the DCN (P1)."""
+        self.check_camera_width(mlp_input)
         mlp_input = self.bn(mlp_input)
         x = self.reduce_conv(x)
         context = self.context_conv(

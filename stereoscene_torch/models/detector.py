@@ -8,6 +8,15 @@ MIE-fused depth distribution into the voxel grid over a static splat plan,
 and the 3D encoder + head predict occupancy logits. ``infer`` adds the
 serving tail: trilinear upsample to the label grid and argmax.
 
+The optional subsystems of the JAX package (bevdepth_occupancy.py:27
+use_grid_mask, ViewTransformerLSSVoxel.py:327-340 imgseg, resnet3d.py:
+158-165 crp3d, occhead.py:171-218 supervise_points; all off in the scored
+config) are switches of ``DetectorConfig``, as there: the grid mask acts in
+training mode only, drawn from the step's generator; the imgseg head (two
+BasicBlocks and a 1x1 conv on the left features) gives ``imgseg_logits``;
+CRP3D gives ``crp_logits``; the point branch gives ``output_points`` for
+a batch with ``points_occ``.
+
 The batch is the JAX package's dict (channels-last images, KITTI 3x4
 intrinsics; see ``BEVDepthOccupancy.forward``) as torch tensors on one
 device. ``use_kernel`` picks the hand-written CUDA kernels (K1
@@ -31,8 +40,10 @@ import torch
 import torch.nn as nn
 
 from .. import geometry
+from ..data.augment import grid_mask
 from ..ops.resize import resize_trilinear
 from ..ops.splat_plan import SplatPlanCache
+from .depth_net import BasicBlock2d
 from .efficientnet import CustomEfficientNet
 from .lss import ViewTransformerLiftSplatShootVoxel
 from .occhead import OccHead
@@ -45,9 +56,10 @@ class DetectorConfig:
     """Static hyperparameters of the active stereoscene model; the same
     fields and defaults as the JAX package's ``DetectorConfig``. The
     backbone's drop path and checkpointing act in training mode;
-    ``bev_with_cp`` is accepted and ignored. The optional subsystems that
-    are off in the scored config (grid mask, imgseg, CRP3D, point
-    supervision) are not ported and must stay off."""
+    ``bev_with_cp`` is accepted and ignored. ``crp_mega_shape`` must
+    divide the grid of stage ``crp_level`` = 2 (the flagship's 16x16x2
+    takes (8, 8, 1), which matches ``relation_label_shape`` (16, 16, 2) of
+    the pipeline)."""
 
     input_size: Tuple[int, int] = (384, 1280)
     downsample: int = 8
@@ -144,11 +156,6 @@ class BEVDepthOccupancy(nn.Module):
                  conv3d_kernel: bool = False,
                  label_shape: Tuple[int, int, int] = (256, 256, 32)):
         super().__init__()
-        off = [f for f in ("use_grid_mask", "imgseg", "crp3d",
-                           "supervise_points") if getattr(cfg, f)]
-        if off:
-            raise NotImplementedError(
-                f"stereoscene_torch does not port {off} yet")
         self.cfg = cfg
         self.label_shape = tuple(label_shape)
         self.img_backbone = CustomEfficientNet(
@@ -166,12 +173,19 @@ class BEVDepthOccupancy(nn.Module):
         self.img_bev_encoder_backbone = CustomResNet3D(
             cfg.numC_Trans, cfg.voxel_channels, strides,
             depth=cfg.resnet_depth, norm_groups=cfg.norm_groups,
-            conv3d_kernel=conv3d_kernel)
+            conv3d_kernel=conv3d_kernel, crp3d=cfg.crp3d,
+            crp_mega_shape=cfg.crp_mega_shape)
         self.img_bev_encoder_neck = SECONDFPN3D(
             cfg.voxel_channels, cfg.voxel_out_channels,
             cfg.fpn3d_upsample_strides, cfg.norm_groups)
         self.pts_bbox_head = OccHead(sum(cfg.voxel_out_channels),
-                                     cfg.out_channel, cfg.norm_groups)
+                                     cfg.out_channel, cfg.norm_groups,
+                                     supervise_points=cfg.supervise_points)
+        if cfg.imgseg:
+            n = sum(cfg.neck_out_channels)
+            self.imgseg_block0 = BasicBlock2d(n)
+            self.imgseg_block1 = BasicBlock2d(n)
+            self.imgseg_head = nn.Conv2d(n, cfg.imgseg_class, 1)
         self.frustum = torch.from_numpy(geometry.create_frustum(
             cfg.input_size, cfg.downsample, cfg.dbound))
         self.plan_cache = SplatPlanCache(self)
@@ -180,11 +194,15 @@ class BEVDepthOccupancy(nn.Module):
 
     # ---- stage 1: shared image encoder over both eyes ----
     def encode_images(self, imgs: torch.Tensor, generator=None):
-        """imgs [B, 2, H, W, 3] -> (left, right) [B, C, fH, fW]."""
+        """imgs [B, 2, H, W, 3] -> (left, right) [B, C, fH, fW]. In
+        training mode with ``use_grid_mask`` the images are grid-masked
+        first, one draw per image from ``generator``."""
         b = imgs.shape[0]
         flat = imgs.transpose(0, 1).reshape((2 * b,) + imgs.shape[2:])
-        feats = self.img_backbone(flat.permute(0, 3, 1, 2), generator,
-                                  groups=2)
+        flat = flat.permute(0, 3, 1, 2)
+        if self.cfg.use_grid_mask and self.training:
+            flat = grid_mask(flat, generator, groups=2)
+        feats = self.img_backbone(flat, generator, groups=2)
         neck = self.img_neck(feats)
         return neck[:b], neck[b:]
 
@@ -231,9 +249,34 @@ class BEVDepthOccupancy(nn.Module):
     # ---- stage 3: 3D encoder + head ----
     def bev_encode(self, voxel_feat):
         """[B, C, X, Y, Z] -> logits [B, classes, X, Y, Z]."""
-        fused = self.img_bev_encoder_neck(
-            self.img_bev_encoder_backbone(voxel_feat))
-        return self.pts_bbox_head(fused)
+        return self.bev_outputs(voxel_feat)[0]
+
+    def bev_outputs(self, voxel_feat, points=None, img_feats=None,
+                    points_uv=None):
+        """-> (logits [B, classes, X, Y, Z], point logits [B, P, classes]
+        or None, CRP relation logits or None); the point branch runs where
+        ``points`` are given."""
+        outs = self.img_bev_encoder_backbone(voxel_feat)
+        crp_logits = points_out = None
+        if self.cfg.crp3d:
+            outs, crp_logits = outs
+        fused = self.img_bev_encoder_neck(outs)
+        if self.cfg.supervise_points and points is not None:
+            points_out = self.pts_bbox_head.forward_points(
+                fused, points, img_feats, points_uv)
+        return self.pts_bbox_head(fused), points_out, crp_logits
+
+    def _normalized_points(self, batch):
+        """points_occ ego xyz -> [-1, 1]^3 grid coordinates for the point
+        branch (normalised by the grid's bounds, occhead.py:180-186)."""
+        cfg = self.cfg
+        dev = batch["points_occ"].device
+        lo = torch.tensor([cfg.xbound[0], cfg.ybound[0], cfg.zbound[0]],
+                          dtype=torch.float32, device=dev)
+        hi = torch.tensor([cfg.xbound[1], cfg.ybound[1], cfg.zbound[1]],
+                          dtype=torch.float32, device=dev)
+        pts = batch["points_occ"][..., :3].float()
+        return (pts - lo) / (hi - lo) * 2.0 - 1.0
 
     def forward(self, batch: Dict[str, torch.Tensor], use_kernel=None,
                 generator=None):
@@ -241,9 +284,14 @@ class BEVDepthOccupancy(nn.Module):
           imgs [B, 2, H, W, 3]; rots [B, 2, 3, 3]; trans [B, 2, 3];
           intrins [B, 2, 3, 4]; post_rots [B, 2, 3, 3]; post_trans [B, 2, 3];
           bda [B, 3, 3]; calib [B] (fx * baseline); optionally the plan
-          (splat_order / splat_ranks / splat_bounds).
-        Returns output_voxels [B, X, Y, Z, classes] and depth_prob
-        [B, D, fH, fW].
+          (splat_order / splat_ranks / splat_bounds), and for the point
+          branch points_occ [B, P, 4] and points_uv [B, P, 3].
+        Returns output_voxels [B, X, Y, Z, classes], depth_prob
+        [B, D, fH, fW], and where their switches are on output_points
+        [B, P, classes] (for a batch with points_occ), imgseg_logits
+        [B, fH, fW, imgseg_class] and crp_logits [B, 4, V, M]. (The JAX
+        package returns those three as None when off; here they are left
+        out, so every value of the dict is a tensor.)
 
         Eval mode: inference without autograd, in the parameters' dtype,
         over the batch's plan (built and cached when missing). Training
@@ -260,11 +308,25 @@ class BEVDepthOccupancy(nn.Module):
 
     def _forward(self, batch, imgs, use_kernel, generator):
         feat_left, feat_right = self.encode_images(imgs, generator)
+        imgseg_logits = None
+        if self.cfg.imgseg:
+            seg = self.imgseg_block1(self.imgseg_block0(feat_left))
+            imgseg_logits = self.imgseg_head(seg).permute(0, 2, 3, 1)
         voxel_feat, depth_prob = self.view_transform(
             feat_left, feat_right, batch, use_kernel, generator)
-        logits = self.bev_encode(voxel_feat)
-        return {"output_voxels": logits.permute(0, 2, 3, 4, 1),
-                "depth_prob": depth_prob}
+        points = points_uv = None
+        if self.cfg.supervise_points and "points_occ" in batch:
+            points = self._normalized_points(batch)
+            if "points_uv" in batch:
+                points_uv = batch["points_uv"][..., :2]
+        logits, output_points, crp_logits = self.bev_outputs(
+            voxel_feat, points, feat_left, points_uv)
+        out = {"output_voxels": logits.permute(0, 2, 3, 4, 1),
+               "depth_prob": depth_prob,
+               "output_points": output_points,
+               "imgseg_logits": imgseg_logits,
+               "crp_logits": crp_logits}
+        return {k: v for k, v in out.items() if v is not None}
 
     @torch.no_grad()
     def infer(self, batch: Dict[str, torch.Tensor],

@@ -49,6 +49,7 @@ class ViewTransformerLiftSplatShootVoxel(nn.Module):
         ``group == splat_group``, or voxel ranks [B, D*fH*fW] for the
         dynamic splat; ``use_kernel`` goes to the K1, P1 and K3 wrappers,
         ``generator`` to the DepthNet's dropout."""
+        self.depth_net.check_camera_width(mlp_left)
         stereo = self.stereo_volume_net(feat_left, feat_right, mlp_left,
                                         mlp_right, calib, use_kernel)
         dn = self.depth_net(feat_left, mlp_left, generator, use_kernel)

@@ -2,6 +2,7 @@
 ``parallel/``, its ``data`` axis)."""
 
 from .mesh import (
+    all_gather_rows,
     all_sum,
     barrier,
     broadcast_module,
@@ -18,6 +19,7 @@ from .mesh import (
 )
 
 __all__ = [
+    "all_gather_rows",
     "all_sum",
     "barrier",
     "broadcast_module",

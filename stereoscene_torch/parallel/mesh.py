@@ -134,6 +134,35 @@ def all_sum(t: torch.Tensor) -> torch.Tensor:
     return _AllSum.apply(t) if initialized() else t
 
 
+class _AllGather(torch.autograd.Function):
+    """Forward: the ranks' tensors concatenated along dim 0, in rank order
+    (every rank holds the same shape). Backward: this rank's rows of the
+    sum over the ranks of the incoming gradients, since every rank's copy
+    feeds its own part of the loss."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, x)
+        ctx.rows = x.shape[0]
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad)
+        r = dist.get_rank()
+        return grad[r * ctx.rows:(r + 1) * ctx.rows]
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along dim 0 in rank order,
+    differentiably (a loss that sorts over the global batch, Lovasz);
+    ``t`` itself without a group."""
+    return _AllGather.apply(t) if initialized() else t
+
+
 def _flat_apply(tensors: Sequence[torch.Tensor],
                 fn: Callable[[torch.Tensor], None]) -> List[torch.Tensor]:
     """Apply the in-place collective ``fn`` to ``tensors`` through one flat

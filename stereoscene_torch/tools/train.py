@@ -145,7 +145,7 @@ def _train(args: argparse.Namespace, device: torch.device, hooks):
     if len(train_index) == 0:
         raise SystemExit(
             f"no training frames found under {data_cfg['train']['data_root']}"
-            " — run tools/preprocess_kitti.py first")
+            " — run python -m stereoscene_torch.tools.preprocess_kitti first")
     batch_size = args.batch_size or data_cfg["samples_per_gpu"]
     train_loader = BatchLoader(
         train_index.shard(parallel.rank(), parallel.world_size()),

@@ -10,6 +10,15 @@ every flax leaf path maps to the reference ``state_dict`` key the port
 uses, with the layout transform from the flax layout to torch's (inverse of
 ``utils/checkpoint_convert.py``) and back.
 
+The optional subsystems' parameters (CRP3D ``cp_mega_voxels``, the imgseg
+head, the OccHead point branch) have no rule in the JAX package's
+converter, so the port names them after the JAX module paths, which follow
+the reference modules its docstrings cite (crp3d.py CPMegaVoxels under
+resnet3d.py's backbone, bevdepth_occupancy.py's imgseg head, occhead.py's
+point branch): ``img_bev_encoder_backbone.cp_mega_voxels.<name>``,
+``imgseg_block0`` / ``imgseg_block1`` / ``imgseg_head`` and
+``pts_bbox_head.{img_feat_reduce, soft_w1, soft_w2, point_occ_mlp}``.
+
 ``seeded_init_(model, seed)`` gives every tensor a deterministic value from a
 ``torch.Generator``, with the zero-initialised gates (BRI ``gamma``, CA3D
 ``alpha``) and the DCN offset head nonzero, so a run exercises every path.
@@ -143,8 +152,11 @@ class _Map:
         self.convgn3d(f"{ours}/redir2", f"{theirs}.redir2")
 
 
-def flax_name_map(cfg) -> _Map:
-    """flax leaf path -> (port state_dict key, flax->torch transform)."""
+def flax_name_map(cfg, head=None) -> _Map:
+    """flax leaf path -> (port state_dict key, flax->torch transform).
+    ``head`` (the model's ``OccHead``) adds the rules of the point branch's
+    image-feature and soft-weight layers, which the detector never builds
+    but a head may."""
     from ..models.efficientnet import scaled_stage_settings
 
     m = _Map()
@@ -268,10 +280,32 @@ def flax_name_map(cfg) -> _Map:
         m.deconv(f"{neck}/deblock{i}_deconv", f"{neck}.deblocks.{i}.0")
         m.gn(f"{neck}/deblock{i}_gn", f"{neck}.deblocks.{i}.1")
 
-    head = "pts_bbox_head"
-    m.conv(f"{head}/occ_conv0_0", f"{head}.occ_convs.0.0", bias=False)
-    m.gn(f"{head}/occ_conv0_gn", f"{head}.occ_convs.0.1")
-    m.conv(f"{head}/occ_conv0_1", f"{head}.occ_convs.0.3", bias=False)
+    if cfg.crp3d:
+        cp = f"{bev}/cp_mega_voxels"
+        tcp = f"{bev}.cp_mega_voxels"
+        for name in ("mega_context", "voxel_reduce", "fuse"):
+            m.conv(f"{cp}/{name}", f"{tcp}.{name}")
+        m.gn(f"{cp}/voxel_gn", f"{tcp}.voxel_gn")
+        m.dense(f"{cp}/mega_key", f"{tcp}.mega_key")
+        m.dense(f"{cp}/relation_head", f"{tcp}.relation_head")
+
+    if cfg.imgseg:
+        for i in (0, 1):
+            ours = f"imgseg_block{i}"
+            for j in (1, 2):
+                m.conv(f"{ours}/conv{j}", f"{ours}.conv{j}", bias=False)
+                m.bn(f"{ours}/bn{j}", f"{ours}.bn{j}")
+        m.conv("imgseg_head", "imgseg_head")
+
+    ph = "pts_bbox_head"
+    m.conv(f"{ph}/occ_conv0_0", f"{ph}.occ_convs.0.0", bias=False)
+    m.gn(f"{ph}/occ_conv0_gn", f"{ph}.occ_convs.0.1")
+    m.conv(f"{ph}/occ_conv0_1", f"{ph}.occ_convs.0.3", bias=False)
+    if cfg.supervise_points or getattr(head, "supervise_points", False):
+        m.mlp(f"{ph}/point_occ_mlp", f"{ph}.point_occ_mlp")
+    for name in ("img_feat_reduce", "soft_w1", "soft_w2"):
+        if hasattr(head, name):
+            m.dense(f"{ph}/{name}", f"{ph}.{name}")
     return m
 
 
@@ -292,7 +326,7 @@ def load_flax_params(model, params, batch_stats) -> None:
     port ``model`` (in place, keeping its dtype and device). Strict: every
     flax leaf must map to a port tensor of the same size, and every port
     tensor except BN step counters must be filled."""
-    name_map = flax_name_map(model.cfg)
+    name_map = flax_name_map(model.cfg, model.pts_bbox_head)
     sd = model.state_dict()
     filled = set()
     for tree, rules in ((params, name_map.params),
@@ -333,7 +367,7 @@ def flax_trees(model, tensors=None):
     flax layout. ``tensors`` (port key -> tensor, e.g. the gradients of
     the parameters) replaces the parameters; a parameter missing from it
     maps to zeros."""
-    name_map = flax_name_map(model.cfg)
+    name_map = flax_name_map(model.cfg, model.pts_bbox_head)
     sd = model.state_dict()
     trees = []
     for rules, source in ((name_map.params, tensors),

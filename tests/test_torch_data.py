@@ -121,16 +121,6 @@ def test_pipeline_samples_match_jax(tree, train):
     assert sample["gt_occ"].shape == LABEL_SHAPE
 
 
-def test_pipeline_refuses_the_training_data_branches():
-    """BEV augmentation and the CRP relation labels are not ported; the
-    LiDAR depth branch is (tests/test_torch_lidar.py)."""
-    for kwargs in (dict(apply_bda=True, is_train=True),
-                   dict(relation_label_shape=(32, 32, 4))):
-        with pytest.raises(NotImplementedError):
-            data.SemanticKittiPipeline(data.PipelineConfig(**kwargs))
-    data.SemanticKittiPipeline(data.PipelineConfig(load_lidar_depth=True))
-
-
 @pytest.mark.parametrize("batch_size,shuffle", [(1, True), (2, False)])
 def test_batch_loader_and_pad_batch_match_jax(tree, batch_size, shuffle):
     jidx, tidx = _indices(tree)
