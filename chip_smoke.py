@@ -109,9 +109,29 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    tool (``stereoscene_torch/tools/train_burnin.py``) passes its checks;
    (f) the train CLI with ``model.use_grid_mask=True`` and the OHEM and
    Lovasz terms takes 2 bf16 steps at B = 1 and logs both terms.
+12. the BEVOcc family, ``bev_with_cp`` and the variant modules: (a)
+   BEVOcc_kitti from ``stereoscene_torch/configs/bevocc_kitti.py`` (b0,
+   a 64x64x8 coarsest level, two levels, embed 128) on the flagship left
+   eye at 384x1280: its fp32 logits [1, 64, 64, 8, 20] and
+   [1, 128, 128, 16, 20] against the port's CPU run on the same seeded
+   weights within 1e-3 of max|ref| (TF32 off), the eval forward's median
+   ms over 3 frames after a warm-up, then 4 fp32 AdamW steps at B = 1 on
+   seeded 128x128x16 labels: finite ``loss_occ_i``, ms per step, peak
+   memory; (b) the flagship with ``bev_with_cp``: an fp32 step at B = 1
+   with it and without (every loss term within 1e-4 relative, the running
+   statistics within 1e-4, every gradient leaf within 2%, floor 1e-4 of
+   the global scale; K1 and P1 launch again in the recompute), then bf16
+   steps at B = 2 with it and without: ms per step and the peak memory,
+   lower with it; (c) ``DepthNetStereo`` at the reference widths (a
+   512-wide mid on the 48x160 features of 640 channels) with P1 against
+   its plain route (1e-4 of max|ref|), then the temporal shift, the
+   ``DepthAggregation``, both 3D necks, the shared head, the voxel
+   encoders, ViT, VoVNet and EfficientNet-es on the card against their CPU
+   results (fp32, TF32 off, 1e-3 of max|ref|).
 
 Then one JSON line with each kernel (its launches in the serving, bf16
-training, eval, train CLI, data-parallel and optional-branch runs, each
+training, eval, train CLI, data-parallel, optional-branch and phase 12b /
+12c runs, each
 counted from 0 just
 before its run, its
 error, its times and its bound from phases 2-4c; the
@@ -1890,6 +1910,357 @@ def phase_optional_cli(dev, build, card: str, tmp: str, tree: tuple) -> dict:
     return launches
 
 
+def bevocc_inputs(h: int, w: int, seed: int, b: int = 1) -> tuple:
+    """BEVOcc_kitti's inputs at the flagship calibration: the left eye
+    [b, 1, h, w, 3] (seeded) and lidar2img [b, 1, 3, 4] = P @ Tr, P the
+    flagship's pinhole (fx = fy = FX, the principal point at the centre)
+    and Tr the ego -> camera transform of its cam-to-ego rotation."""
+    gen = torch.Generator().manual_seed(seed)
+    imgs = torch.randn(b, 1, h, w, 3, generator=gen)
+    p = torch.tensor([[FX, 0.0, w / 2.0, 0.0], [0.0, FX, h / 2.0, 0.0],
+                      [0.0, 0.0, 1.0, 0.0]])
+    rot = torch.tensor([[0.0, 0, 1], [-1, 0, 0], [0, -1, 0]])
+    tr = torch.eye(4)
+    tr[:3, :3] = rot.T
+    return imgs, (p @ tr).expand(b, 1, 3, 4).clone()
+
+
+def card_vs_cpu(name: str, fn, module, args, dev, tol: float = 1e-3):
+    """``fn(module, *args)`` on the CPU and on the card (a copy of the
+    module), fp32 with TF32 off: every output within ``tol`` of its
+    max|ref|. Returns the worst ratio."""
+    import copy
+
+    def leaves(out):
+        if torch.is_tensor(out):
+            return [out]
+        if isinstance(out, dict):
+            out = list(out.values())
+        return [t for o in out for t in leaves(o)] if out is not None else []
+
+    with torch.no_grad():
+        want = leaves(fn(module.eval(), *args))
+        card = copy.deepcopy(module).to(dev).eval()
+        got = leaves(fn(card, *(a.to(dev) if torch.is_tensor(a) else a
+                                for a in args)))
+    worst = 0.0
+    for g, w in zip(got, want):
+        ref = float(w.abs().max())
+        err = max_err(g.cpu(), w) / max(ref, 1e-12)
+        if g.shape != w.shape or not err <= tol:
+            raise AssertionError(f"phase 12c {name}: card vs CPU {err:.2e} "
+                                 f"of max|ref| (shape {tuple(g.shape)})")
+        worst = max(worst, err)
+    del card
+    return worst
+
+
+def phase_bevocc(dev, build, card: str) -> dict:
+    """Phase 12: (a) BEVOcc_kitti from its config on the card, (b) the
+    flagship's ``bev_with_cp``, (c) DepthNetStereo's P1 route and the other
+    variant modules against the CPU. Returns the launches of (b) and
+    (c)."""
+    from stereoscene_torch.config import Config
+    from stereoscene_torch.engine import train
+    from stereoscene_torch.models import (
+        bev_stereo,
+        bevocc,
+        necks3d,
+        shared_occhead,
+        temporal,
+        voxel_encoder,
+    )
+    from stereoscene_torch.models.depth_net import DepthAggregation
+    from stereoscene_torch.models.detector import (
+        BEVDepthOccupancy,
+        DetectorConfig,
+    )
+    from stereoscene_torch.models.efficientnet import CustomEfficientNet
+    from stereoscene_torch.models.vit import ViT
+    from stereoscene_torch.models.vovnet import VoVNet
+    from stereoscene_torch.utils.weights import seeded_init_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    launches = collections.Counter()
+
+    # (a) BEVOcc_kitti at the config's widths on the flagship left eye
+    t_phase = time.perf_counter()
+    cfg = Config.fromfile("stereoscene_torch/configs/bevocc_kitti.py")
+    h, w = 384, 1280
+    cpu_model = bevocc.bevocc_from_config(cfg, device="cpu")
+    seeded_init_(cpu_model, SEED)
+    model = bevocc.bevocc_from_config(cfg, device=dev)
+    model.load_state_dict(cpu_model.state_dict())
+    imgs, l2i = bevocc_inputs(h, w, SEED + 30)
+    with torch.no_grad():
+        want = cpu_model(imgs, l2i)["occ_preds"]
+        got = model(imgs.to(dev), l2i.to(dev))["occ_preds"]
+        shapes = [tuple(p.shape) for p in got]
+        errs = [max_err(g.cpu(), r) / float(r.abs().max())
+                for g, r in zip(got, want)]
+        if (shapes != [(1, 64, 64, 8, 20), (1, 128, 128, 16, 20)]
+                or not max(errs) <= 1e-3):
+            raise AssertionError(f"phase 12a BEVOcc: shapes {shapes}, card "
+                                 f"vs CPU {errs}")
+        frames = [bevocc_inputs(h, w, SEED + 31 + i) for i in range(3)]
+        model(*(t.to(dev) for t in frames[0]))  # warm-up
+        ms = []
+        for fi, fl in frames:
+            fi, fl = fi.to(dev), fl.to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(fi, fl)["occ_preds"]
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not all(bool(torch.isfinite(p).all()) for p in out):
+                raise AssertionError("phase 12a BEVOcc: non-finite logits")
+    del want, got, out
+    gen = torch.Generator().manual_seed(SEED + 35)
+    occ = torch.randint(0, 20, (1, 128, 128, 16), generator=gen)
+    gt = torch.where(torch.rand(occ.shape, generator=gen) < 0.1, 255,
+                     occ).to(torch.int32).to(dev)
+    model.train()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.01)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_losses = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        losses = bevocc.bevocc_loss(
+            model(imgs.to(dev), l2i.to(dev))["occ_preds"], gt)
+        opt.zero_grad(set_to_none=True)
+        sum(losses.values()).backward()
+        opt.step()
+        step_losses.append({k: float(v.detach())
+                            for k, v in losses.items()})
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(v) and k.startswith("loss_occ_")
+               for out in step_losses for k, v in out.items()) \
+            or len(step_losses[0]) != 2:
+        raise AssertionError(f"phase 12a BEVOcc steps: {step_losses}")
+    head = model.pts_bbox_head
+    print(f"phase 12a BEVOcc_kitti (bevocc_from_config of "
+          f"stereoscene_torch/configs/bevocc_kitti.py: {model.backbone}, "
+          f"out_indices (5,), neck {model.img_neck.out_features}, embed "
+          f"{head.embed_dim}, coarsest {head.bev_shape + (head.num_z,)}, "
+          f"fpn_level {head.fpn_level}, "
+          f"{head.transformer0.num_layers} encoder layers; "
+          f"{sum(p.numel() for p in model.parameters())} parameters) on "
+          f"{card}, the flagship left eye {h}x{w}: logits {shapes}, card vs "
+          f"CPU {', '.join(f'{e:.2e}' for e in errs)} of max|ref| (fp32, "
+          f"TF32 off); fp32 eval forward ms {statistics.median(ms):.1f} "
+          f"(median of 3 frames after a warm-up; samples "
+          f"{', '.join(f'{t:.1f}' for t in ms)}); 4 fp32 AdamW steps at "
+          f"B = 1 on seeded 128x128x16 labels: losses "
+          f"{[{k: round(v, 4) for k, v in o.items()} for o in step_losses]}"
+          f"; ms per step {statistics.median(step_ms[1:]):.1f} (median of "
+          f"the last 3; samples {', '.join(f'{t:.1f}' for t in step_ms)}); "
+          f"peak memory {peak:.2f} GiB; {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
+    del model, cpu_model, opt
+    torch.cuda.empty_cache()
+
+    # (b) the flagship with bev_with_cp: fp32 B = 1 on/off, bf16 B = 2
+    t_phase = time.perf_counter()
+    batch = train_batch(DetectorConfig(), SEED + 20, dev)
+    loss_cfg = train.LossConfig()
+    runs = {}
+    for cp in (False, True):
+        m = BEVDepthOccupancy(DetectorConfig(bev_with_cp=cp), device=dev)
+        seeded_init_(m, SEED)
+        st = train.create_train_state(m, device=dev)
+        build.launch_counts.clear()
+        total, losses, grads = train.loss_and_grads(
+            st, batch, loss_cfg,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        counts = dict(build.launch_counts)
+        launches.update(counts)
+        stats = {k: v.clone() for k, v in m.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        runs[cp] = (total, losses, grads, counts, stats,
+                    [n for n, _ in st.trainable])
+        del m, st
+    (t0_, l0, g0, c0, s0, names), (t1, l1, g1, c1, s1, _) = (runs[False],
+                                                             runs[True])
+    # the checkpointed run launches K1 and P1 again in its recompute
+    if (c0.get("gwc_warp") != 1 or c0.get("dcn_gather") != 1
+            or c1.get("gwc_warp", 0) < 2 or c1.get("dcn_gather", 0) < 2):
+        raise AssertionError(f"phase 12b launches: off {c0}, on {c1}")
+    off = {k: (float(l1[k]), float(v)) for k, v in l0.items()
+           if not abs(float(l1[k] - v)) <= 1e-4 * abs(float(v))}
+    stat_err = max(max_err(s1[k], v) / max(float(v.abs().max()), 1e-6)
+                   for k, v in s0.items())
+    scale = max(float(g.abs().max()) for g in g0)
+    bad = []
+    for name, a, b in zip(names, g1, g0):
+        leaf = max(float(a.abs().max()), float(b.abs().max()), 1e-6)
+        err = float((a - b).abs().max())
+        if not (math.isfinite(err) and err <= max(2e-2 * leaf, 1e-4 * scale)):
+            bad.append((name, err / leaf))
+    if off or bad or not stat_err <= 1e-4:
+        raise AssertionError(f"phase 12b fp32 bev_with_cp on vs off: loss "
+                             f"terms {off}, statistics {stat_err:.2e}, "
+                             f"{len(bad)} grad leaves off "
+                             f"{sorted(bad, key=lambda b: -b[1])[:5]}")
+    print(f"phase 12b fp32 step of the flagship at B = 1, bev_with_cp on vs "
+          f"off: loss {float(t1):.6f} vs {float(t0_):.6f} (every term "
+          f"within 1e-4 relative); {len(s0)} running statistics within "
+          f"{stat_err:.2e} of their scale (updated once); {len(names)} grad "
+          f"leaves within 2% (floor {1e-4 * scale:.2e}); launches on {c1}, "
+          f"off {c0}", flush=True)
+    del runs, g0, g1
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    pair = [train_batch(DetectorConfig(), SEED + 20 + i, "cpu")
+            for i in range(2)]
+    batch2 = {k: torch.cat([a[k], b[k]]).to(dev) for k, a, b in
+              ((k, pair[0], pair[1]) for k in pair[0])}
+    bf16 = {}
+    for cp in (False, True):
+        m = BEVDepthOccupancy(DetectorConfig(bev_with_cp=cp), device=dev)
+        seeded_init_(m, SEED)
+        st = train.create_train_state(m, device=dev)
+        step = train.make_train_step(loss_cfg, bf16=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        build.launch_counts.clear()
+        ms, totals = [], []
+        for i in range(2):
+            t0 = time.perf_counter()
+            st, logs = step(st, batch2,
+                            torch.Generator(device=dev).manual_seed(SEED))
+            totals.append(float(logs["loss_total"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches.update(build.launch_counts)
+        bf16[cp] = (ms, (torch.cuda.max_memory_allocated() - base) / 2**30,
+                    torch.cuda.max_memory_allocated() / 2**30, totals)
+        if not all(math.isfinite(v) for v in totals):
+            raise AssertionError(f"phase 12b bf16 bev_with_cp {cp}: {totals}")
+        del m, st, step
+        torch.cuda.empty_cache()
+    if not bf16[True][2] < bf16[False][2]:
+        raise AssertionError(f"phase 12b bf16 peak with bev_with_cp "
+                             f"{bf16[True][2]:.2f} GiB, without "
+                             f"{bf16[False][2]:.2f} GiB")
+    print(f"phase 12b bf16 steps of the flagship at B = 2 on {card}: "
+          + "; ".join(
+              f"bev_with_cp {cp}: ms per step {v[0][1]:.1f} (first "
+              f"{v[0][0]:.1f}), peak {v[2]:.2f} GiB ({v[1]:.2f} GiB above "
+              f"the model and batch), losses {v[3]}"
+              for cp, v in bf16.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del batch, batch2
+
+    # (c) DepthNetStereo's P1 route; each other module against the CPU
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    gen = torch.Generator().manual_seed(SEED + 40)
+    stereo = bev_stereo.DepthNetStereo(640, 512, 128, 112, cam_channels=27)
+    seeded_init_(stereo, SEED)
+    stereo = stereo.to(dev).eval()
+    x = torch.randn(1, 640, 48, 160, generator=gen).to(dev)
+    cam = torch.randn(1, 27, generator=gen).to(dev)
+    with torch.no_grad():
+        build.launch_counts.clear()
+        got = stereo(x, cam, use_kernel=True)
+        counts = dict(build.launch_counts)
+        want = stereo(x, cam, use_kernel=False)
+    launches.update(counts)
+    if counts.get("dcn_gather") != 1:
+        raise AssertionError(f"phase 12c DepthNetStereo launches {counts}")
+    stereo_err = {k: max_err(got[k], want[k]) / float(want[k].abs().max())
+                  for k in want}
+    if not max(stereo_err.values()) <= 1e-4:
+        raise AssertionError(f"phase 12c DepthNetStereo P1 vs plain: "
+                             f"{stereo_err}")
+    del stereo, got, want
+    checks = {}
+    rng = np.random.RandomState(SEED + 41)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32))
+
+    yaw = 0.1
+    tf = torch.tensor([[[math.cos(yaw), -math.sin(yaw), 1.3],
+                        [math.sin(yaw), math.cos(yaw), -0.7], [0, 0, 1]]])
+    dx = np.array([0.8, 0.8, 0.8], np.float32)
+    bx = np.array([0.4, -25.2, -1.6], np.float32)
+    checks["temporal shift [1, 64, 64, 8, 128]"] = card_vs_cpu(
+        "temporal", lambda m, f, a: temporal.shift_voxel_feature(
+            f, a, dx, bx), torch.nn.Identity(), (t(1, 64, 64, 8, 128), tf),
+        dev)
+    agg = DepthAggregation(128, 128, 128)
+    seeded_init_(agg, SEED)
+    checks["DepthAggregation [2, 128, 160, 112]"] = card_vs_cpu(
+        "DepthAggregation", lambda m, v: m(v), agg, (t(2, 128, 160, 112),),
+        dev)
+    pyramid = (t(1, 128, 64, 64, 8), t(1, 256, 32, 32, 4),
+               t(1, 512, 16, 16, 2))
+    for name, neck in (
+            ("FPN3D", necks3d.FPN3D((128, 256, 512), 128, num_upsample=1)),
+            ("SpconvNeck3D", necks3d.SpconvNeck3D((128, 256, 512), 128))):
+        seeded_init_(neck, SEED)
+        checks[f"{name} (128, 256, 512) at 64x64x8"] = card_vs_cpu(
+            name, lambda m, *f: m(list(f)), neck, pyramid, dev)
+    shared = shared_occhead.SharedOccHead(128, 20, 128)
+    seeded_init_(shared, SEED)
+    pts = torch.from_numpy(np.stack(
+        [rng.uniform(0, 51.2, (1, 10000)), rng.uniform(-25.6, 25.6,
+                                                       (1, 10000)),
+         rng.uniform(-2, 4.4, (1, 10000))], -1).astype(np.float32))
+    checks["SharedOccHead [1, 128, 128, 16, 128], 10000 points"] = \
+        card_vs_cpu("SharedOccHead", lambda m, g, p: m([g], p), shared,
+                    (t(1, 128, 128, 16, 128), pts), dev)
+    n_pts = N_LIDAR_POINTS
+    lidar = torch.from_numpy(np.stack(
+        [rng.uniform(-5, 56, n_pts), rng.uniform(-30, 30, n_pts),
+         rng.uniform(-3, 5, n_pts)], -1).astype(np.float32))
+    pcr = (0.0, -25.6, -2.0, 51.2, 25.6, 4.4)
+    enc = voxel_encoder.DenseSparseEncoder(4)
+    unet = voxel_encoder.DenseUNet3D(4)
+    for mod in (enc, unet):
+        seeded_init_(mod, SEED)
+
+    def encode(m, pts, feats):
+        grid = voxel_encoder.voxelize_points(
+            pts, feats, torch.ones(len(pts), dtype=torch.bool,
+                                   device=pts.device), (128, 128, 16), pcr)
+        grid = grid.permute(3, 0, 1, 2)[None]
+        return [grid, m[0](grid), m[1](grid)]
+
+    checks[f"voxelize {n_pts} points + DenseSparseEncoder + DenseUNet3D "
+           f"at 128x128x16"] = card_vs_cpu(
+        "voxel encoder", encode, torch.nn.ModuleList([enc, unet]),
+        (lidar, t(n_pts, 4)), dev)
+    img = t(1, 3, 384, 1280)
+    for name, net in (("ViT-S/16 (embed 384, depth 12)", ViT((384, 1280))),
+                      ("VoVNet", VoVNet()),
+                      ("EfficientNet-es", CustomEfficientNet(
+                          "es", (2, 3, 4, 5, 6)))):
+        seeded_init_(net, SEED)
+        checks[f"{name} on 384x1280"] = card_vs_cpu(
+            name, lambda m, v: m(v), net, (img,), dev)
+    print(f"phase 12c DepthNetStereo (in 640, mid 512, context 128, D 112) "
+          f"on the 48x160 features: P1 route vs plain "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in stereo_err.items())} of "
+          f"max|ref| (fp32), launches {counts}; card vs CPU (fp32, TF32 "
+          f"off, within 1e-3 of max|ref|): "
+          f"{'; '.join(f'{k} {v:.2e}' for k, v in checks.items())}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -1958,6 +2329,8 @@ def main() -> None:
                                             phase9)
         torch.cuda.empty_cache()
         optional = phase_optional(dev, _build, card, tmp, tree)
+        torch.cuda.empty_cache()
+    variants = phase_bevocc(dev, _build, card)
     for path, counts, needs in (
             ("serving", serving, ("gwc_warp", "dcn_gather",
                                   "lift_splat_fused")),
@@ -1968,7 +2341,9 @@ def main() -> None:
                                       "lift_splat_fused")),
             ("data parallel", data_parallel, ("gwc_warp", "dcn_gather",
                                               "lift_splat_fused")),
-            ("optional branches", optional, ("gwc_warp", "dcn_gather"))):
+            ("optional branches", optional, ("gwc_warp", "dcn_gather")),
+            ("bev_with_cp and DepthNetStereo", variants,
+             ("gwc_warp", "dcn_gather"))):
         for name in needs:
             if counts.get(name, 0) < 1:
                 raise AssertionError(f"{name} never launched in {path}")
@@ -1991,7 +2366,8 @@ def main() -> None:
         k["route"] = "cuda"
         k["launches"] = sum(run.get(k["name"], 0)
                             for run in (serving, training, evaluation,
-                                        train_cli, data_parallel, optional))
+                                        train_cli, data_parallel, optional,
+                                        variants))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.deform_conv import deform_conv2d
+from . import layers
 from .layers import BatchNorm, GroupNorm, Mlp, SELayer, dropout
 
 
@@ -65,13 +66,25 @@ class ASPP(nn.Module):
         self.conv1 = nn.Conv2d(mid * 5, mid, 1, bias=False)
         self.bn1 = BatchNorm(mid)
 
-    def forward(self, x, generator=None):
+    def drop_mask(self, x, generator=None):
+        """The dropout mask of the output for input ``x`` [N, C, H, W],
+        drawn now from ``generator``; None where nothing drops (eval mode,
+        rate 0). A checkpointed caller draws it before its region."""
+        if not (self.training and self.dropout_rate > 0):
+            return None
+        n, _, h, w = x.shape
+        return layers.keep_mask((n, self.bn1.num_features, h, w),
+                                1.0 - self.dropout_rate, generator, x.device)
+
+    def forward(self, x, generator=None, mask=None):
+        """``mask`` (``drop_mask``) replaces the dropout draw from
+        ``generator``."""
         xs = [self.aspp1(x), self.aspp2(x), self.aspp3(x), self.aspp4(x)]
         g = self.global_avg_pool(x)  # [N, mid, 1, 1], a constant map
         xs.append(g.expand(-1, -1, *xs[0].shape[-2:]))
         y = F.relu(self.bn1(self.conv1(torch.cat(xs, dim=1))))
         if self.training and self.dropout_rate > 0:
-            y = dropout(y, self.dropout_rate, generator)
+            y = dropout(y, self.dropout_rate, generator, mask)
         return y
 
 
@@ -128,9 +141,15 @@ class DepthNet(nn.Module):
                 f"wide (cam_channels), got {mlp_input.shape[-1]}: a 4x4 "
                 f"bda (apply_bda) widens it to 33")
 
-    def forward(self, x, mlp_input, generator=None, use_kernel=None):
-        """``generator`` seeds the ASPP dropout in training mode;
-        ``use_kernel`` goes to the DCN (P1)."""
+    def aspp_mask(self, x, generator=None):
+        """The ASPP dropout mask for input ``x`` (``ASPP.drop_mask``)."""
+        return self.depth_conv[3].drop_mask(x, generator)
+
+    def forward(self, x, mlp_input, generator=None, use_kernel=None,
+                aspp_mask=None):
+        """``generator`` seeds the ASPP dropout in training mode, or
+        ``aspp_mask`` (``aspp_mask``) gives it; ``use_kernel`` goes to the
+        DCN (P1)."""
         self.check_camera_width(mlp_input)
         mlp_input = self.bn(mlp_input)
         x = self.reduce_conv(x)
@@ -139,9 +158,38 @@ class DepthNet(nn.Module):
         depth = self.depth_se(x, self.depth_mlp(mlp_input))
         for layer in self.depth_conv:
             if isinstance(layer, ASPP):
-                depth = layer(depth, generator)
+                depth = layer(depth, generator, aspp_mask)
             elif isinstance(layer, DeformConvPack):
                 depth = layer(depth, use_kernel)
             else:
                 depth = layer(depth)
         return torch.cat([depth, context], dim=1)
+
+
+class DepthAggregation(nn.Module):
+    """Lifted-volume refinement net (ref: ViewTransformerLSSBEVDepth.py
+    :519-574, the ``use_voxel_net`` path; off in the scored config), port
+    of the JAX package's ``DepthAggregation`` (depth_net.py:170-194):
+    reduce conv -> BN -> ReLU, two conv -> BN -> ReLU with a skip around
+    them, then a 3x3 out conv. Channels-first slices [N, C, W, D] of the
+    lifted volume; the BatchNorms compute in fp32. Keys follow the JAX
+    module names."""
+
+    def __init__(self, in_channels: int, mid_channels: int,
+                 out_channels: int):
+        super().__init__()
+        self.reduce_conv = nn.Conv2d(in_channels, mid_channels, 3,
+                                     padding=1, bias=False)
+        self.reduce_bn = BatchNorm(mid_channels)
+        for i in range(2):
+            setattr(self, f"conv{i}", nn.Conv2d(mid_channels, mid_channels,
+                                                3, padding=1, bias=False))
+            setattr(self, f"bn{i}", BatchNorm(mid_channels))
+        self.out_conv = nn.Conv2d(mid_channels, out_channels, 3, padding=1)
+
+    def forward(self, x):
+        y = F.relu(self.reduce_bn(self.reduce_conv(x)))
+        short_cut = y
+        for i in range(2):
+            y = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(y)))
+        return self.out_conv(y + short_cut)

@@ -45,6 +45,7 @@ from ..ops.resize import resize_trilinear
 from ..ops.splat_plan import SplatPlanCache
 from .depth_net import BasicBlock2d
 from .efficientnet import CustomEfficientNet
+from .layers import checkpoint_region, remat
 from .lss import ViewTransformerLiftSplatShootVoxel
 from .occhead import OccHead
 from .resnet3d import CustomResNet3D
@@ -55,8 +56,11 @@ from .second_fpn import SECONDFPN, SECONDFPN3D
 class DetectorConfig:
     """Static hyperparameters of the active stereoscene model; the same
     fields and defaults as the JAX package's ``DetectorConfig``. The
-    backbone's drop path and checkpointing act in training mode;
-    ``bev_with_cp`` is accepted and ignored. ``crp_mega_shape`` must
+    backbone's drop path and checkpointing act in training mode, and so
+    does ``bev_with_cp``, which checkpoints the view transformer (and each
+    of its hourglasses and its MIE block within it), the voxel encoder and
+    its neck (``BEVDepthOccupancy.view_transform``, ``bev_outputs``).
+    ``crp_mega_shape`` must
     divide the grid of stage ``crp_level`` = 2 (the flagship's 16x16x2
     takes (8, 8, 1), which matches ``relation_label_shape`` (16, 16, 2) of
     the pipeline)."""
@@ -167,7 +171,8 @@ class BEVDepthOccupancy(nn.Module):
             num_depth=cfg.num_depth, numC_input=sum(cfg.neck_out_channels),
             numC_Trans=cfg.numC_Trans, cam_channels=cfg.cam_channels,
             grid_shape=cfg.grid_shape, attention_chunk=cfg.attention_chunk,
-            splat_group=cfg.splat_group, conv3d_kernel=conv3d_kernel)
+            splat_group=cfg.splat_group, conv3d_kernel=conv3d_kernel,
+            with_cp=cfg.bev_with_cp)
         strides = tuple(cfg.voxel_strides) + (2,) * (
             len(cfg.voxel_channels) - len(cfg.voxel_strides))
         self.img_bev_encoder_backbone = CustomResNet3D(
@@ -242,9 +247,19 @@ class BEVDepthOccupancy(nn.Module):
                     batch["splat_bounds"])
         else:
             plan = self.compute_ranks(batch)
-        return self.img_view_transformer(
-            feat_left, feat_right, mlp[:, 0], mlp[:, 1], batch["calib"], plan,
-            use_kernel, generator)
+        vt = self.img_view_transformer
+        args = (feat_left, feat_right, mlp[:, 0], mlp[:, 1], batch["calib"],
+                plan, use_kernel)
+        # bev_with_cp (detector.py:174-196 of the JAX package: nn.remat of
+        # the view transformer, the voxel encoder and its neck) acts in
+        # training under grad
+        if not (self.cfg.bev_with_cp and self.training
+                and torch.is_grad_enabled()):
+            return vt(*args, generator)
+        # the dropout mask is drawn before the region, so the recompute
+        # sees it (the generator would give another)
+        return checkpoint_region(vt, vt, *args, None,
+                                 vt.depth_net.aspp_mask(feat_left, generator))
 
     # ---- stage 3: 3D encoder + head ----
     def bev_encode(self, voxel_feat):
@@ -256,11 +271,12 @@ class BEVDepthOccupancy(nn.Module):
         """-> (logits [B, classes, X, Y, Z], point logits [B, P, classes]
         or None, CRP relation logits or None); the point branch runs where
         ``points`` are given."""
-        outs = self.img_bev_encoder_backbone(voxel_feat)
+        cp = self.cfg.bev_with_cp
+        outs = remat(cp, self.img_bev_encoder_backbone, voxel_feat)
         crp_logits = points_out = None
         if self.cfg.crp3d:
             outs, crp_logits = outs
-        fused = self.img_bev_encoder_neck(outs)
+        fused = remat(cp, self.img_bev_encoder_neck, outs)
         if self.cfg.supervise_points and points is not None:
             points_out = self.pts_bbox_head.forward_points(
                 fused, points, img_feats, points_uv)

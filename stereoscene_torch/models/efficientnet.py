@@ -1,5 +1,5 @@
-"""EfficientNet image backbone (b0-b8), port of
-``stereoscene_tpu/models/efficientnet.py`` ('b' family, inference).
+"""EfficientNet image backbone (b0-b8 and the EdgeTPU es / em / el), port
+of ``stereoscene_tpu/models/efficientnet.py``.
 
 Compound width/depth scaling of the base layer table, TF-SAME adaptive
 padding, BN(eps 1e-3) + Swish, squeeze-excite on the expanded width, and
@@ -24,9 +24,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from .layers import BatchNorm, drop_path, keep_mask
+from .layers import BatchNorm, checkpoint_region, drop_path, keep_mask
 
 # Base (b0) table per stage: (kernel, out_channels, se_ratio, stride,
 # expand_ratio) (ref: efficientnet.py:308-327 layer_settings['b']).
@@ -42,11 +41,27 @@ _BASE_BLOCKS = [
 _STEM = (3, 32, 2)  # kernel, channels, stride
 _HEAD = (1, 1280, 1)
 
+# EfficientNet-EdgeTPU ('e') table (ref: efficientnet.py:328-347
+# layer_settings['e']): no SE; the 6th element is the block type, 1 =
+# EdgeResidual (the 3x3 24/32/48 stages), 0 = InvertedResidual (the 5x5
+# 96/144/192 stages).
+_BASE_BLOCKS_E = [
+    [(3, 24, 0, 1, 3, 1)],
+    [(3, 32, 0, 2, 8, 1), (3, 32, 0, 1, 8, 1)],
+    [(3, 48, 0, 2, 8, 1), (3, 48, 0, 1, 8, 1), (3, 48, 0, 1, 8, 1),
+     (3, 48, 0, 1, 8, 1)],
+    [(5, 96, 0, 2, 8, 0), (5, 96, 0, 1, 8, 0), (5, 96, 0, 1, 8, 0),
+     (5, 96, 0, 1, 8, 0), (5, 96, 0, 1, 8, 0),
+     (5, 144, 0, 1, 8, 0), (5, 144, 0, 1, 8, 0), (5, 144, 0, 1, 8, 0),
+     (5, 144, 0, 1, 8, 0)],
+    [(5, 192, 0, 2, 8, 0), (5, 192, 0, 1, 8, 0)],
+]
+
 # (width_mult, depth_mult) (ref: efficientnet.py:354-367)
 ARCH_SETTINGS = {
     "b0": (1.0, 1.0), "b1": (1.0, 1.1), "b2": (1.1, 1.2), "b3": (1.2, 1.4),
     "b4": (1.4, 1.8), "b5": (1.6, 2.2), "b6": (1.8, 2.6), "b7": (2.0, 3.1),
-    "b8": (2.2, 3.6),
+    "b8": (2.2, 3.6), "es": (1.0, 1.0), "em": (1.0, 1.1), "el": (1.2, 1.4),
 }
 
 
@@ -61,19 +76,26 @@ def scaled_stage_settings(arch: str):
     """(stem_channels, stages, head_channels) after compound scaling; a
     segment of equal-width blocks is repeated ceil(d * len) times and a
     stride-1-leading segment joins the previous stage
-    (ref: efficientnet.py:231-271 model_scaling)."""
+    (ref: efficientnet.py:231-271 model_scaling). A block is (kernel,
+    out_channels, se_ratio, stride, expand) in the 'b' family and (kernel,
+    out_channels, se_ratio, stride, expand, kind, with_residual) in the
+    EdgeTPU family, kind 'edge' (``EdgeResidual``) or 'mb'
+    (``InvertedResidual``); a depth-scaled copy of the expand-3 edge block
+    takes expand 4 and no residual (ref: efficientnet.py:474-478)."""
     if arch not in ARCH_SETTINGS:
         raise ValueError(f"unsupported EfficientNet arch {arch!r}")
     w, d = ARCH_SETTINGS[arch]
+    edge = arch[0] == "e"
     segments = []
-    for group in _BASE_BLOCKS:
+    for group in _BASE_BLOCKS_E if edge else _BASE_BLOCKS:
         current = []
-        for k, c, se, s, e in group:
+        for blk in group:
+            k, c, se, s, e = blk[:5]
             c = make_divisible(c * w, 8)
             if current and current[-1][1] != c:
                 segments.append(current)
                 current = []
-            current.append((k, c, se, s, e))
+            current.append((k, c, se, s, e) + tuple(blk[5:]))
         segments.append(current)
     stages = []
     for i, seg in enumerate(segments):
@@ -83,6 +105,13 @@ def scaled_stage_settings(arch: str):
             stages[-1] = stages[-1] + blocks
         else:
             stages.append(list(blocks))
+    if edge:
+        stages = [[(k, c, se, s,
+                    4 if (bt == 1 and j > 0 and e == 3) else e,
+                    "edge" if bt == 1 else "mb",
+                    not (bt == 1 and j > 0 and e == 3))
+                   for j, (k, c, se, s, e, bt) in enumerate(stage)]
+                  for stage in stages]
     return (make_divisible(_STEM[1] * w, 8), stages, int(_HEAD[1] * w))
 
 
@@ -111,8 +140,8 @@ class ConvBNAct(nn.Module):
         self.bn = BatchNorm(cout, eps=1e-3)
         self.act = act
 
-    def forward(self, x, update_stats: bool = True):
-        x = self.bn(self.conv(x), update_stats)
+    def forward(self, x):
+        x = self.bn(self.conv(x))
         return F.silu(x) if self.act else x
 
 
@@ -155,21 +184,14 @@ class InvertedResidual(nn.Module):
     def forward(self, x, keep=None):
         if not (self.with_cp and self.training and torch.is_grad_enabled()):
             return self._block(x, keep)
-        first = [True]
+        return checkpoint_region(self, self._block, x, keep)
 
-        def run(x, keep):  # the forward updates BN statistics, the
-            update, first[0] = first[0], False  # recompute does not
-            return self._block(x, keep, update)
-
-        return checkpoint(run, x, keep, use_reentrant=False)
-
-    def _block(self, x, keep, update_stats=True):
-        out = x if self.expand_conv is None else self.expand_conv(
-            x, update_stats)
-        out = self.depthwise_conv(out, update_stats)
+    def _block(self, x, keep):
+        out = x if self.expand_conv is None else self.expand_conv(x)
+        out = self.depthwise_conv(out)
         if self.se is not None:
             out = self.se(out)
-        out = self.linear_conv(out, update_stats)
+        out = self.linear_conv(out)
         if not self.with_res:
             return out
         if keep is not None:
@@ -184,6 +206,37 @@ class InvertedResidual(nn.Module):
             return None
         return keep_mask((x.shape[0],), 1.0 - self.drop_path_rate,
                          generator, x.device, groups)
+
+
+class EdgeResidual(InvertedResidual):
+    """EdgeTPU block (ref: efficientnet.py:15-111): a full-kernel expand
+    conv ``conv1`` at stride 1, optional SE, a strided 1x1 projection
+    ``conv2``; the residual where ``with_residual``, stride 1 and equal
+    widths. Checkpointing and DropPath as ``InvertedResidual``."""
+
+    def __init__(self, cin, cout, kernel, stride, expand_ratio, se_ratio,
+                 drop_path_rate=0.0, with_cp=False, with_residual=True):
+        nn.Module.__init__(self)
+        mid = cin * expand_ratio
+        self.with_res = with_residual and stride == 1 and cin == cout
+        self.drop_path_rate = drop_path_rate
+        self.with_cp = with_cp
+        self.conv1 = ConvBNAct(cin, mid, kernel)
+        self.se = (EffSELayer(mid, max(1, int(mid // (expand_ratio
+                                                      * se_ratio))))
+                   if se_ratio > 0 else None)
+        self.conv2 = ConvBNAct(mid, cout, 1, stride=stride, act=False)
+
+    def _block(self, x, keep):
+        out = self.conv1(x)
+        if self.se is not None:
+            out = self.se(out)
+        out = self.conv2(out)
+        if not self.with_res:
+            return out
+        if keep is not None:
+            out = drop_path(out, keep, self.drop_path_rate)
+        return x + out
 
 
 class CustomEfficientNet(nn.Module):
@@ -201,9 +254,14 @@ class CustomEfficientNet(nn.Module):
         cin = stem_ch
         for stage in stages:
             blocks = []
-            for k, c, se, s, e in stage:
-                blocks.append(InvertedResidual(cin, c, k, s, e, se,
-                                               next(rates), with_cp))
+            for blk in stage:
+                k, c, se, s, e = blk[:5]
+                if len(blk) == 7 and blk[5] == "edge":
+                    blocks.append(EdgeResidual(cin, c, k, s, e, se,
+                                               next(rates), with_cp, blk[6]))
+                else:
+                    blocks.append(InvertedResidual(cin, c, k, s, e, se,
+                                                   next(rates), with_cp))
                 cin = c
             layers.append(nn.Sequential(*blocks))
         layers.append(ConvBNAct(cin, head_ch, _HEAD[0], stride=_HEAD[2]))

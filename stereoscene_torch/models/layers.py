@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import parallel
 from ..ops.conv3d import KERNEL_CIN, conv3d_s1
@@ -59,11 +60,14 @@ def keep_mask(shape, keep: float, generator, device,
     return (draw < keep).to(device)
 
 
-def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator=None,
+            mask=None) -> torch.Tensor:
     """Element-wise dropout, flax ``nn.Dropout``: kept values scaled by
-    1 / (1 - rate)."""
+    1 / (1 - rate). ``mask`` (a ``keep_mask`` of ``x.shape`` drawn
+    earlier) replaces the draw from ``generator``."""
     keep = 1.0 - rate
-    mask = keep_mask(x.shape, keep, generator, x.device)
+    if mask is None:
+        mask = keep_mask(x.shape, keep, generator, x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -104,9 +108,9 @@ class BatchNorm(nn.BatchNorm2d):
     variance and updates the running statistics as flax does
     (layers.py:958-976): r <- (1 - m) r + m * batch statistic with m =
     ``self.momentum`` (torch's convention) and the *biased* variance, where
-    ``F.batch_norm`` would take the unbiased one. ``update_stats=False``
-    leaves them alone: the recompute of a checkpointed block must not update
-    them a second time.
+    ``F.batch_norm`` would take the unbiased one. ``stats_frozen``
+    (set by ``checkpoint_region``) leaves them alone: the recompute of a
+    checkpointed block must not update them a second time.
 
     In a process group the batch is the global one, every rank's: the
     statistics are pooled by ``parallel.all_sum`` in two passes, (count,
@@ -115,7 +119,9 @@ class BatchNorm(nn.BatchNorm2d):
     statistics to, the same values. A checkpointed block's recompute pools
     again, on every rank in the same order."""
 
-    def forward(self, x, update_stats: bool = True):
+    stats_frozen = False
+
+    def forward(self, x):
         xf = x.float()
         if not self.training:
             return F.batch_norm(
@@ -133,7 +139,7 @@ class BatchNorm(nn.BatchNorm2d):
                 (xf - mean.reshape(shape)).square().sum(dims)) / sums[-1]
         else:
             var, mean = torch.var_mean(xf, dim=dims, correction=0)
-        if update_stats:
+        if not self.stats_frozen:
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
@@ -141,6 +147,38 @@ class BatchNorm(nn.BatchNorm2d):
                                                      + self.eps)
         return (y * self.weight.float().reshape(shape)
                 + self.bias.float().reshape(shape)).to(x.dtype)
+
+
+def checkpoint_region(module: nn.Module, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint(use_reentrant=False)``
+    (the JAX package's ``nn.remat``): the forward updates the BatchNorm
+    statistics of ``module`` once, and its recompute in the backward runs
+    with them frozen. Randomness must be drawn before the region and passed
+    in, as the recompute would draw again from an explicit generator."""
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return fn(*a)
+        norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+        for m in norms:
+            m.stats_frozen = True
+        try:
+            return fn(*a)
+        finally:
+            for m in norms:
+                m.stats_frozen = False
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def remat(on: bool, module: nn.Module, *args):
+    """``module(*args)``, through ``checkpoint_region`` where ``on`` and
+    the module trains under grad."""
+    if on and module.training and torch.is_grad_enabled():
+        return checkpoint_region(module, module, *args)
+    return module(*args)
 
 
 class Conv3d(nn.Conv3d):

@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from ..ops.voxel_pool import lift_splat, lift_splat_static
 from .depth_net import DepthNet
+from .layers import remat
 from .mie import VolumeInteraction
 from .stereo_volume import GwcVolumeEncoder
 
@@ -28,36 +29,42 @@ class ViewTransformerLiftSplatShootVoxel(nn.Module):
                  numC_Trans: int = 128, cam_channels: int = 30,
                  grid_shape: Tuple[int, int, int] = (128, 128, 16),
                  attention_chunk: int = 1024, splat_group: int = 1,
-                 conv3d_kernel: bool = False):
+                 conv3d_kernel: bool = False, with_cp: bool = False):
         super().__init__()
+        # with_cp: in training, checkpoint each hourglass and the MIE block
+        # (lss.py:42-46 of the JAX package), so that the recompute of a
+        # checkpointed view transformer holds one block at a time
+        self.with_cp = with_cp
         self.num_depth = num_depth
         self.numC_Trans = numC_Trans
         self.grid_shape = tuple(grid_shape)
         self.splat_group = splat_group
         self.stereo_volume_net = GwcVolumeEncoder(
             num_depth, numC_input, cam_channels=cam_channels,
-            conv3d_kernel=conv3d_kernel)
+            conv3d_kernel=conv3d_kernel, with_cp=with_cp)
         self.depth_net = DepthNet(numC_input, numC_input, numC_Trans,
                                   num_depth, cam_channels)
         self.volume_interaction = VolumeInteraction(
             attention_chunk=attention_chunk, conv3d_kernel=conv3d_kernel)
 
     def forward(self, feat_left, feat_right, mlp_left, mlp_right, calib,
-                plan, use_kernel=None, generator=None):
+                plan, use_kernel=None, generator=None, aspp_mask=None):
         """feat_*: [B, C_in, fH, fW]; mlp_*: [B, cam]; calib: [B]; plan:
         (order, ranks_sorted, bounds) of a ``splat_plan`` plan built with
         ``group == splat_group``, or voxel ranks [B, D*fH*fW] for the
         dynamic splat; ``use_kernel`` goes to the K1, P1 and K3 wrappers,
-        ``generator`` to the DepthNet's dropout."""
+        ``generator`` (or a mask drawn before, ``aspp_mask``) to the
+        DepthNet's dropout."""
         self.depth_net.check_camera_width(mlp_left)
         stereo = self.stereo_volume_net(feat_left, feat_right, mlp_left,
                                         mlp_right, calib, use_kernel)
-        dn = self.depth_net(feat_left, mlp_left, generator, use_kernel)
+        dn = self.depth_net(feat_left, mlp_left, generator, use_kernel,
+                            aspp_mask)
         d = self.num_depth
         lss_prob = torch.softmax(dn[:, :d].float(), dim=1).to(feat_left.dtype)
         img_feat = dn[:, d:d + self.numC_Trans]
-        fused_prob = self.volume_interaction(stereo["single_channel"],
-                                             lss_prob)
+        fused_prob = remat(self.with_cp, self.volume_interaction,
+                           stereo["single_channel"], lss_prob)
         feat = img_feat.permute(0, 2, 3, 1)
         if isinstance(plan, torch.Tensor):
             bev = lift_splat(fused_prob.float(), feat.float(), plan,

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from ..geometry import disparity_positions
 from ..ops.gwc import fused_gwc_warp
 from .layers import BatchNorm, ConvGN3d, ConvTransposeTorch, GroupNorm, Mlp, \
-    SELayer
+    SELayer, remat
 
 
 class StereoFeatureNet(nn.Module):
@@ -79,9 +79,10 @@ class Hourglass3D(nn.Module):
 class GwcVolumeEncoder(nn.Module):
     def __init__(self, max_disp, in_channels, out_channels=32, num_groups=32,
                  mid_channels=128, match_channels=64, cam_channels=30,
-                 conv3d_kernel=False):
+                 conv3d_kernel=False, with_cp=False):
         super().__init__()
         self.max_disp = max_disp
+        self.with_cp = with_cp  # checkpoint each hourglass in training
         self.num_groups = num_groups
         self.feature_withcam = StereoFeatureNet(
             in_channels, mid_channels, match_channels, cam_channels)
@@ -110,7 +111,9 @@ class GwcVolumeEncoder(nn.Module):
         vol = vol.permute(0, 4, 1, 2, 3)  # [B, G, D, fH, fW] (a view)
         cost0 = self.dres0(vol)
         cost0 = self.dres1(cost0) + cost0
-        out3 = self.dres4(self.dres3(self.dres2(cost0)))
+        out3 = cost0
+        for hourglass in (self.dres2, self.dres3, self.dres4):
+            out3 = remat(self.with_cp, hourglass, out3)
         multi = self.classif3_1(out3)
         single = self.classif3_2(multi)[:, 0]
         prob = torch.softmax(single.float(), dim=1).to(left.dtype)

@@ -19,6 +19,15 @@ point branch): ``img_bev_encoder_backbone.cp_mega_voxels.<name>``,
 ``imgseg_block0`` / ``imgseg_block1`` / ``imgseg_head`` and
 ``pts_bbox_head.{img_feat_reduce, soft_w1, soft_w2, point_occ_mlp}``.
 
+A ``BEVOcc`` (``models/bevocc.py``) has no reference converter rule
+either: ``bevocc_name_map`` names its keys after the JAX module paths, the
+backbone keeping the reference layout. The variant modules whose
+submodules carry the JAX scope names (``models/necks3d.py``,
+``bevformer.py``, ``vit.py`` ...) map through ``module_rules``, which
+reads the rules off the JAX module's own trees; ``load_rules`` and
+``rules_trees`` apply any map. The trees hold copies, never views of the
+port's tensors.
+
 ``seeded_init_(model, seed)`` gives every tensor a deterministic value from a
 ``torch.Generator``, with the zero-initialised gates (BRI ``gamma``, CA3D
 ``alpha``) and the DCN offset head nonzero, so a run exercises every path.
@@ -26,10 +35,11 @@ point branch): ``img_bev_encoder_backbone.cp_mega_voxels.<name>``,
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 Transform = Callable[[np.ndarray], np.ndarray]
 # (port key, flax -> torch layout, torch -> flax layout)
@@ -93,6 +103,16 @@ class _Map:
     def __init__(self):
         self.params: Dict[str, Rule] = {}
         self.stats: Dict[str, Rule] = {}
+        self.unused: Tuple[str, ...] = ()  # port key prefixes flax lacks
+
+    def raw(self, ours, theirs):
+        """A parameter kept in the same layout (an embedding table)."""
+        self.params[ours] = (theirs, _same, _same)
+
+    def ln(self, ours, theirs):
+        """A flax ``nn.LayerNorm`` (scale, bias) -> torch LayerNorm."""
+        self.params[f"{ours}/scale"] = (f"{theirs}.weight", _same, _same)
+        self.params[f"{ours}/bias"] = (f"{theirs}.bias", _same, _same)
 
     def conv(self, ours, theirs, bias=True, inner=True):
         """Our ConvNd wrapper (``Conv_0`` inside) or a bare conv leaf."""
@@ -152,33 +172,49 @@ class _Map:
         self.convgn3d(f"{ours}/redir2", f"{theirs}.redir2")
 
 
+def efficientnet_rules(m: _Map, arch: str, ours: str = "img_backbone",
+                       theirs: str = "img_backbone.layers",
+                       head: bool = True) -> None:
+    """Rules of a ``CustomEfficientNet`` under flax scope ``ours`` and
+    port key ``theirs``: the stem, every block (``InvertedResidual`` or the
+    EdgeTPU family's ``EdgeResidual``: ``conv1`` / ``conv2``) and, with
+    ``head``, the head conv (flax builds it only when out_indices takes
+    stage 6)."""
+    from ..models.efficientnet import scaled_stage_settings
+
+    _, stages, _ = scaled_stage_settings(arch)
+
+    def conv_module(o, t):
+        m.conv(f"{o}/conv", f"{t}.conv", bias=False, inner=False)
+        m.bn(f"{o}/bn", f"{t}.bn")
+
+    conv_module(f"{ours}/stem", f"{theirs}.0")
+    for s, stage in enumerate(stages, start=1):
+        for j, blk in enumerate(stage):
+            o, t = f"{ours}/stage{s}_block{j}", f"{theirs}.{s}.{j}"
+            se, expand = blk[2], blk[4]
+            if len(blk) == 7 and blk[5] == "edge":
+                conv_module(f"{o}/conv1", f"{t}.conv1")
+                conv_module(f"{o}/conv2", f"{t}.conv2")
+                continue
+            if expand != 1:
+                conv_module(f"{o}/expand_conv", f"{t}.expand_conv")
+            conv_module(f"{o}/depthwise_conv", f"{t}.depthwise_conv")
+            if se > 0:
+                m.dense(f"{o}/se/conv1", f"{t}.se.conv1.conv", 2)
+                m.dense(f"{o}/se/conv2", f"{t}.se.conv2.conv", 2)
+            conv_module(f"{o}/linear_conv", f"{t}.linear_conv")
+    if head:
+        conv_module(f"{ours}/head", f"{theirs}.{len(stages) + 1}")
+
+
 def flax_name_map(cfg, head=None) -> _Map:
     """flax leaf path -> (port state_dict key, flax->torch transform).
     ``head`` (the model's ``OccHead``) adds the rules of the point branch's
     image-feature and soft-weight layers, which the detector never builds
     but a head may."""
-    from ..models.efficientnet import scaled_stage_settings
-
     m = _Map()
-    _, stages, _ = scaled_stage_settings(cfg.backbone_arch)
-
-    def conv_module(ours, theirs):
-        m.conv(f"{ours}/conv", f"{theirs}.conv", bias=False, inner=False)
-        m.bn(f"{ours}/bn", f"{theirs}.bn")
-
-    tb = "img_backbone.layers"
-    conv_module("img_backbone/stem", f"{tb}.0")
-    for s, stage in enumerate(stages, start=1):
-        for j, (_, _, se, _, expand) in enumerate(stage):
-            ours, theirs = f"img_backbone/stage{s}_block{j}", f"{tb}.{s}.{j}"
-            if expand != 1:
-                conv_module(f"{ours}/expand_conv", f"{theirs}.expand_conv")
-            conv_module(f"{ours}/depthwise_conv", f"{theirs}.depthwise_conv")
-            if se > 0:
-                m.dense(f"{ours}/se/conv1", f"{theirs}.se.conv1.conv", 2)
-                m.dense(f"{ours}/se/conv2", f"{theirs}.se.conv2.conv", 2)
-            conv_module(f"{ours}/linear_conv", f"{theirs}.linear_conv")
-    conv_module("img_backbone/head", f"{tb}.{len(stages) + 1}")
+    efficientnet_rules(m, cfg.backbone_arch)
 
     for i, s in enumerate(cfg.neck_upsample_strides):
         theirs = f"img_neck.deblocks.{i}"
@@ -320,17 +356,24 @@ def _flatten(tree, prefix=""):
     return out
 
 
+def _model_map(model) -> _Map:
+    from ..models.bevocc import BEVOcc
+
+    if isinstance(model, BEVOcc):
+        return bevocc_name_map(model)
+    return flax_name_map(model.cfg, model.pts_bbox_head)
+
+
 @torch.no_grad()
-def load_flax_params(model, params, batch_stats) -> None:
-    """Copy the JAX package's ``params`` / ``batch_stats`` trees into the
-    port ``model`` (in place, keeping its dtype and device). Strict: every
-    flax leaf must map to a port tensor of the same size, and every port
-    tensor except BN step counters must be filled."""
-    name_map = flax_name_map(model.cfg, model.pts_bbox_head)
-    sd = model.state_dict()
+def load_rules(module, name_map: _Map, params, batch_stats=None) -> None:
+    """Copy flax trees into ``module`` under ``name_map`` (in place,
+    keeping its dtype and device). Strict: every flax leaf must map to a
+    port tensor of the same size, and every port tensor except BN step
+    counters and the map's ``unused`` ones must be filled."""
+    sd = module.state_dict()
     filled = set()
     for tree, rules in ((params, name_map.params),
-                        (batch_stats, name_map.stats)):
+                        (batch_stats or {}, name_map.stats)):
         for path, leaf in _flatten(tree).items():
             if path not in rules:
                 raise KeyError(f"flax leaf {path} has no port counterpart")
@@ -344,10 +387,18 @@ def load_flax_params(model, params, batch_stats) -> None:
             sd[key].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
             filled.add(key)
     missing = [k for k in sd if k not in filled
-               and not k.endswith("num_batches_tracked")]
+               and not k.endswith("num_batches_tracked")
+               and not k.startswith(name_map.unused)]
     if missing:
         raise KeyError(f"{len(missing)} port tensors not filled, first 10: "
                        f"{missing[:10]}")
+
+
+def load_flax_params(model, params, batch_stats) -> None:
+    """Copy the JAX package's ``params`` / ``batch_stats`` trees into the
+    port ``model`` (a ``BEVDepthOccupancy`` or a ``BEVOcc``), strictly
+    (``load_rules``)."""
+    load_rules(model, _model_map(model), params, batch_stats)
 
 
 def _unflatten(flat):
@@ -361,25 +412,155 @@ def _unflatten(flat):
     return tree
 
 
-def flax_trees(model, tensors=None):
-    """The port ``model``'s parameters and BatchNorm statistics as the JAX
-    package's ``(params, batch_stats)`` trees of fp32 numpy arrays, in the
-    flax layout. ``tensors`` (port key -> tensor, e.g. the gradients of
-    the parameters) replaces the parameters; a parameter missing from it
-    maps to zeros."""
-    name_map = flax_name_map(model.cfg, model.pts_bbox_head)
-    sd = model.state_dict()
+def rules_trees(module, name_map: _Map, tensors=None):
+    """``module``'s parameters and BatchNorm statistics as flax
+    ``(params, batch_stats)`` trees of fp32 numpy arrays under
+    ``name_map``. ``tensors`` (port key -> tensor, e.g. gradients)
+    replaces the parameters; a parameter missing from it maps to zeros."""
+    sd = module.state_dict()
     trees = []
     for rules, source in ((name_map.params, tensors),
                           (name_map.stats, None)):
         flat = {}
         for path, (key, _, inv) in rules.items():
             value = sd[key] if source is None else source.get(key)
+            # a copy: a CPU tensor's .numpy() shares its memory, and a
+            # later in-place update (BatchNorm statistics) would move the
+            # tree, even under a JAX computation still running on it
             arr = (np.zeros(tuple(sd[key].shape), np.float32) if value is None
-                   else value.detach().float().cpu().numpy())
+                   else value.detach().float().cpu().numpy().copy())
             flat[path] = np.ascontiguousarray(inv(arr))
         trees.append(_unflatten(flat))
     return trees[0], trees[1]
+
+
+def flax_trees(model, tensors=None):
+    """The port ``model``'s (a ``BEVDepthOccupancy`` or a ``BEVOcc``)
+    parameters and BatchNorm statistics as the JAX package's ``(params,
+    batch_stats)`` trees (``rules_trees``)."""
+    return rules_trees(model, _model_map(model), tensors)
+
+
+def encoder_rules(m: _Map, ours: str, theirs: str, enc) -> None:
+    """Rules of a ``bevformer.OccupancyEncoder`` ``enc`` under flax scope
+    ``ours`` and port prefix ``theirs``."""
+    m.raw(f"{ours}/bev_queries", f"{theirs}.bev_queries")
+    for name in ("can_bus_mlp1", "can_bus_mlp2"):
+        if hasattr(enc, name):
+            m.dense(f"{ours}/{name}", f"{theirs}.{name}")
+    if hasattr(enc, "can_bus_norm"):
+        m.ln(f"{ours}/can_bus_norm", f"{theirs}.can_bus_norm")
+    for i in range(enc.num_layers):
+        o, t = f"{ours}/layer{i}", f"{theirs}.layer{i}"
+        for name in ("norm1", "norm2", "norm3"):
+            m.ln(f"{o}/{name}", f"{t}.{name}")
+        for fo, ft in (("self_attn", "self_attn"),
+                       ("cross_attn/deform", "cross_attn.deform")):
+            for name in ("sampling_offsets", "attention_weights",
+                         "value_proj", "output_proj"):
+                m.dense(f"{o}/{fo}/{name}", f"{t}.{ft}.{name}")
+        m.dense(f"{o}/ffn1", f"{t}.ffn1")
+        m.dense(f"{o}/ffn2", f"{t}.ffn2")
+
+
+def bevocc_name_map(model) -> _Map:
+    """The rules of a ``models.bevocc.BEVOcc``. The JAX converter has no
+    rule for this family, so the port's keys are the JAX module paths
+    (``pts_bbox_head.transformer0.layer0.norm1.weight``); the backbone
+    keeps the reference layout, and its head conv, which flax does not
+    build under ``out_indices=(5,)``, is unused."""
+    m = _Map()
+    efficientnet_rules(m, model.backbone.split("-")[1], head=False)
+    m.unused = (f"img_backbone.layers.{len(model.img_backbone.layers) - 1}.",)
+    m.dense("img_neck", "img_neck")
+    head = model.pts_bbox_head
+    ph = "pts_bbox_head"
+    for i in range(head.fpn_level):
+        m.dense(f"{ph}/transfer_conv{i}", f"{ph}.transfer_conv{i}")
+        pe = f"positional_encoding{i}"
+        m.raw(f"{ph}/{pe}/row_embed", f"{ph}.{pe}.row_embed")
+        m.raw(f"{ph}/{pe}/col_embed", f"{ph}.{pe}.col_embed")
+        encoder_rules(m, f"{ph}/transformer{i}", f"{ph}.transformer{i}",
+                      getattr(head, f"transformer{i}"))
+        m.dense(f"{ph}/lift{i}", f"{ph}.lift{i}")
+        m.conv(f"{ph}/occ{i}", f"{ph}.occ{i}")
+        if head.pred_ground:
+            m.conv(f"{ph}/ground{i}", f"{ph}.ground{i}")
+    for k in range(1, head.fpn_level):
+        m.deconv(f"{ph}/deblock{k}_deconv", f"{ph}.deblock{k}_deconv")
+        m.gn(f"{ph}/deblock{k}_gn", f"{ph}.deblock{k}_gn")
+    return m
+
+
+# scopes of the JAX package's wrapper modules (layers.ConvNd, GroupNorm,
+# BatchNorm), which hold the flax layer one level down
+_WRAPPERS = {"Conv_0", "GroupNorm_0", "BatchNorm_0"}
+_LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
+           "var": "running_var"}
+
+
+def _kernel_rule(mod, scope: str, shape) -> Tuple[Transform, Transform]:
+    from ..models.depth_net import DeformConvPack
+
+    if isinstance(mod, nn.modules.conv._ConvTransposeNd):
+        return _deconv, _deconv_inv
+    if isinstance(mod, nn.modules.conv._ConvNd):
+        if len(shape) == 2:  # a flax Dense held as a 1x1 conv (SELayer)
+            return _dense_as_conv(mod.weight.dim() - 2), _dense_as_conv_inv
+        return _conv, _conv_inv
+    if isinstance(mod, DeformConvPack):
+        return _dcn, _dcn_inv
+    if len(shape) == 2:
+        return _linear, _linear
+    # flax DenseGeneral (attention): [in, heads, head_dim] for the
+    # projections, [heads, head_dim, out] for "out"
+    if scope.endswith("out"):
+        return (lambda w: w.reshape(-1, w.shape[-1]).T,
+                lambda w, s=tuple(shape): w.T.reshape(s))
+    return (lambda w: w.reshape(w.shape[0], -1).T,
+            lambda w, s=tuple(shape): w.T.reshape(s))
+
+
+def module_rules(module, params, batch_stats=None,
+                 renames: Sequence[Tuple[str, str]] = ()) -> _Map:
+    """Rules for a port ``module`` whose submodules are named after the
+    JAX module's scopes, read off the JAX module's own trees (e.g. from
+    ``init``): a scope's wrapper level (``Conv_0``, ``GroupNorm_0``,
+    ``BatchNorm_0``) is dropped, ``renames`` maps a flax scope prefix to a
+    port module path (``/``-separated) where the names differ, and the
+    layout transform follows the port module's type (Linear, ConvNd,
+    ConvTransposeNd, DCN, attention projections). Leaves: kernel / scale
+    -> weight, mean / var -> running_mean / running_var, other names as
+    they are."""
+    from ..models.depth_net import DeformConvPack
+
+    mods = dict(module.named_modules())
+    m = _Map()
+    for tree, rules in ((params, m.params), (batch_stats or {}, m.stats)):
+        for path, leaf in _flatten(tree).items():
+            *scope, name = path.split("/")
+            scope = "/".join(s for s in scope if s not in _WRAPPERS)
+            for old, new in renames:
+                if scope == old or scope.startswith(old + "/"):
+                    scope = new + scope[len(old):]
+                    break
+            mod_path = scope.replace("/", ".")
+            if mod_path not in mods:
+                raise KeyError(f"flax leaf {path}: no port module {mod_path}")
+            mod = mods[mod_path]
+            shape = np.shape(leaf)
+            fwd = inv = _same
+            if name == "kernel":
+                fwd, inv = _kernel_rule(mod, scope, shape)
+            elif name == "weight" and isinstance(mod, DeformConvPack):
+                fwd, inv = _dcn, _dcn_inv
+            elif name == "bias" and len(shape) > 1:
+                fwd = lambda w: w.reshape(-1)  # noqa: E731
+                inv = lambda w, s=tuple(shape): w.reshape(s)  # noqa: E731
+            key = _LEAVES.get(name, name)
+            rules[path] = (f"{mod_path}.{key}" if mod_path else key, fwd,
+                           inv)
+    return m
 
 
 @torch.no_grad()

@@ -268,6 +268,9 @@ def test_imgseg_head_matches_jax_in_training(detector):
         return jnp.sum(y * cot), y
 
     (_, want), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jp)
+    # the training forward moves the shared model's BatchNorm statistics;
+    # the module's other tests hold it to ``stats``, so they are put back
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
     model.train()
     try:
         y = model.imgseg_head(model.imgseg_block1(model.imgseg_block0(
@@ -278,6 +281,7 @@ def test_imgseg_head_matches_jax_in_training(detector):
                                     params_t)
     finally:
         model.eval()
+        model.load_state_dict(saved)
     want = np.asarray(want)
     np.testing.assert_allclose(y.detach().numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())

@@ -55,6 +55,17 @@ CAM = 30
 VT = "img_view_transformer"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the suite runs several pytest
+    workers on the CPU at once, and a full torch thread pool in each makes
+    the CPU's bf16 and conv kernels crawl (oversubscription)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _labeled_batch(rng):
     batch = dict(_tiny_batch(b=2, rng=rng))
     x, y, z = TINY.grid_shape

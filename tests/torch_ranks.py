@@ -204,22 +204,13 @@ def module_grads(rank, world, url, cfg, weights, inputs, aspp_mask):
 
 def _bn_run(bn, x, cot, checkpointed):
     """BatchNorm ``bn`` (training mode) on ``x`` [N, C, ...], optionally
-    under ``torch.utils.checkpoint`` with the statistics updated by the
+    under ``layers.checkpoint_region`` with the statistics updated by the
     forward only (as a checkpointed EfficientNet block runs it); returns
     (y, the gradients of sum(y * cot) for x, weight and bias)."""
-    from torch.utils.checkpoint import checkpoint
+    from stereoscene_torch.models.layers import checkpoint_region
 
     x = x.clone().requires_grad_()
-    if checkpointed:
-        first = [True]
-
-        def run(x):
-            update, first[0] = first[0], False
-            return bn(x, update)
-
-        y = checkpoint(run, x, use_reentrant=False)
-    else:
-        y = bn(x)
+    y = checkpoint_region(bn, bn, x) if checkpointed else bn(x)
     gx, gw, gb = torch.autograd.grad((y * cot).sum(),
                                      [x, bn.weight, bn.bias])
     return y.detach(), gx, gw, gb
