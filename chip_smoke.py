@@ -128,10 +128,33 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    ``DepthAggregation``, both 3D necks, the shared head, the voxel
    encoders, ViT, VoVNet and EfficientNet-es on the card against their CPU
    results (fp32, TF32 off, 1e-3 of max|ref|).
+13. the nuScenes family, on no kernel (none lies on its path): (a) the
+   BEVFormer detector at BEVFormer-tiny's widths (six cameras, embed 256,
+   a 50x50 BEV, 3 encoder and 6 decoder layers, 900 queries, 10 classes,
+   one seeded 15x25x256 feature level) with calibration from
+   ``NuScenesPipeline`` over a synthetic mmdet3d info pickle of six
+   seeded 900x1600 JPEGs at the nuScenes camera headings (host ms per
+   sample): its fp32 outputs on two frames (the second with ``prev_bev``
+   and can_bus) against the CPU within 1e-3 of max|ref| (TF32 off); the
+   eval forward's median ms over three frames of one scene through
+   ``PrevFrameInfo``, then a fourth frame of a new scene that resets it;
+   4 fp32 AdamW steps at B = 1, each with a 2-frame history through
+   ``obtain_history_bev`` and 30 seeded boxes: every loss term finite, ms
+   per step, peak memory, the Hungarian matchings' host ms a step (the
+   copy to the host and scipy); ``bevformer_get_bboxes`` and
+   ``evaluate_detections``: mAP and NDS in [0, 1]; (b) the Mask2Former
+   occupancy head at the JAX defaults: on 50x50x4 against the CPU within
+   1e-3 of max|ref|, its attention masks equal, the resampled mask logits
+   within 1e-5 of 0 counted; on the 200x200x16 nuScenes occupancy grid the
+   fp32 forward's ms, ``semantic_inference`` [1, 200, 200, 16, 20] and 2
+   AdamW steps on ``mask2former_loss_all_layers``: every term finite, ms
+   per step, peak memory (a grid that does not fit fails the phase); (c)
+   ``batched_nms`` on 900 seeded boxes and ``decode_nms_free`` on
+   [1, 900, 10] equal to their CPU runs.
 
 Then one JSON line with each kernel (its launches in the serving, bf16
-training, eval, train CLI, data-parallel, optional-branch and phase 12b /
-12c runs, each
+training, eval, train CLI, data-parallel, optional-branch, phase 12b /
+12c and phase 13 runs, each
 counted from 0 just
 before its run, its
 error, its times and its bound from phases 2-4c; the
@@ -171,6 +194,33 @@ EVAL_CONFIG = "stereoscene_semantickitti.py"  # the flagship's config file
 # H100 SXM datasheet peaks (dense, without sparsity)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# phase 13: BEVFormer-tiny's widths (BEVFormer
+# projects/configs/bevformer/bevformer_tiny.py) on one feature level of
+# 15x25x256 (ResNet-50's C5 of a 480x800 image), nuScenes' six cameras
+BEVFORMER_TINY = dict(num_classes=10, num_query=900, embed_dim=256,
+                      bev_shape=(50, 50), num_encoder_layers=3,
+                      num_decoder_layers=6,
+                      pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0))
+NUSC_FEAT = (15, 25, 256)
+NUSC_IMAGE = (900, 1600)
+NUSC_INPUT = (480, 800)
+NUSC_GT_BOXES = 30
+# the detector's parameters that steer its deformable sampling and box
+# refinement, which phase 13a scales by STEERING_SCALE after seeded_init_
+STEERING = ("sampling_offsets.weight", "attention_weights.weight",
+            "_out.weight")
+STEERING_SCALE = 0.03
+NUSC_HEADINGS = {"CAM_FRONT_LEFT": 55.0, "CAM_FRONT": 0.0,
+                 "CAM_FRONT_RIGHT": -55.0, "CAM_BACK_LEFT": 110.0,
+                 "CAM_BACK": 180.0, "CAM_BACK_RIGHT": -110.0}
+# the JAX package's Mask2FormerOccHead defaults; the nuScenes occupancy
+# grid (tests/test_nuscenes.py's gt_occ)
+MASK2FORMER = dict(num_queries=50, embed_dim=64, num_layers=3,
+                   num_classes=20, num_heads=8, num_feat_levels=2,
+                   num_encoder_layers=2)
+M2F_IN = 64
+M2F_SMALL = (50, 50, 4)
+NUSC_OCC = (200, 200, 16)
 # the flagship's K4 convs: (Ci, D, H, W, Co) and launches per forward
 K4_SHAPES = {"hourglass conv2": ((64, 56, 24, 80, 64), 4),
              "hourglass conv4": ((128, 28, 12, 40, 128), 4),
@@ -2261,6 +2311,464 @@ def phase_bevocc(dev, build, card: str) -> dict:
     return dict(launches)
 
 
+def nusc_frames() -> list:
+    """(scene token, can_bus [18]) of four frames: three of one scene,
+    the ego 2 m forward and 3 degrees left a frame (position in [0:3], yaw
+    in radians at [-2] and degrees at [-1], as mmdet3d's infos hold them),
+    then the first frame of another scene."""
+    frames = []
+    for i in range(4):
+        bus = np.zeros(18, np.float32)
+        yaw = 3.0 * i
+        bus[:3] = [2.0 * i, 0.1 * i * i, 0.0]
+        bus[-2], bus[-1] = np.deg2rad(yaw), yaw
+        frames.append(("scene-0001" if i < 3 else "scene-0002", bus))
+    frames[3][1][:3] = [600.0, 1600.0, 0.0]
+    return frames
+
+
+def write_nuscenes_infos(root: str, frames: list, seed: int) -> str:
+    """An mmdet3d-style info pickle of ``frames`` under ``root``: six
+    seeded 900x1600 JPEGs (shared by the frames), each camera at its
+    nuScenes heading 1.5 m above the ego origin with nuScenes' front-camera
+    intrinsics (scaled to ``NUSC_IMAGE``). Returns the pickle's path."""
+    import pickle
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    sy, sx = NUSC_IMAGE[0] / 900.0, NUSC_IMAGE[1] / 1600.0
+    intrinsic = np.array([[1266.4 * sx, 0.0, 816.3 * sx],
+                          [0.0, 1266.4 * sx, 491.5 * sy], [0.0, 0.0, 1.0]])
+    cams = {}
+    for cam, heading in NUSC_HEADINGS.items():
+        path = os.path.join(root, f"{cam}.jpg")
+        Image.fromarray(rng.randint(0, 255, NUSC_IMAGE + (3,),
+                                    np.uint8)).save(path)
+        th = np.deg2rad(heading)
+        # camera axes (x right, y down, z forward) in the lidar frame
+        rot = np.array([[np.sin(th), 0.0, np.cos(th)],
+                        [-np.cos(th), 0.0, np.sin(th)], [0.0, -1.0, 0.0]])
+        cams[cam] = {"data_path": path,
+                     "cam_intrinsic": intrinsic,
+                     "sensor2lidar_rotation": rot,
+                     "sensor2lidar_translation": np.array(
+                         [0.5 * np.cos(th), 0.5 * np.sin(th), 1.5])}
+    infos = [{"token": f"sample-{i}", "scene_token": scene, "can_bus": bus,
+              "cams": cams} for i, (scene, bus) in enumerate(frames)]
+    path = os.path.join(root, "nuscenes_infos.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"infos": infos}, f)
+    return path
+
+
+def nusc_lidar2img(sample: dict) -> np.ndarray:
+    """[N_cam, 3, 4] lidar -> augmented-image projections of a
+    ``NuScenesPipeline`` sample: post homography @ K @ [R^T | -R^T t]."""
+    out = []
+    for rot, tran, k, pr, pt in zip(sample["rots"], sample["trans"],
+                                    sample["intrins"], sample["post_rots"],
+                                    sample["post_trans"]):
+        l2c = np.concatenate([rot.T, -(rot.T @ tran)[:, None]], 1)
+        post = np.eye(3, dtype=np.float32)
+        post[:2, :2] = pr[:2, :2]
+        post[:2, 2] = pt[:2]
+        out.append(post @ k @ l2c)
+    return np.stack(out).astype(np.float32)
+
+
+def nusc_scene(model, inputs: tuple, n: int) -> list:
+    """Frames 0..n-1 of ``inputs`` (index, features, spatial shapes,
+    lidar2img) through ``PrevFrameInfo`` on ``model``'s device: (outputs,
+    host ms to a synchronised end, prev_bev given, can_bus deltas) per
+    frame."""
+    from stereoscene_torch.models.bevformer_det import PrevFrameInfo
+
+    index, feats, shapes, l2i = inputs
+    device = next(model.parameters()).device
+    state = PrevFrameInfo()
+    runs = []
+    for i in range(n):
+        prev, bus = state.step(index[i]["scene_token"], index[i]["can_bus"])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(feats[i].to(device), shapes, l2i[i].to(device),
+                    NUSC_INPUT, prev_bev=prev,
+                    can_bus=torch.from_numpy(bus)[None].to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        runs.append((out, (time.perf_counter() - t0) * 1e3,
+                     prev is not None, bus))
+        state.update(out["bev_embed"])
+    return runs
+
+
+def scene_errors(cpu_model, model, inputs: tuple, n: int) -> dict:
+    """Each output of ``n`` frames through ``nusc_scene`` on the card
+    against the CPU, as a share of its max|ref|."""
+    errs = {}
+    for fi, ((g, *_), (w, *_)) in enumerate(zip(
+            nusc_scene(model, inputs, n), nusc_scene(cpu_model, inputs, n))):
+        for key in ("all_cls_scores", "all_bbox_preds", "bev_embed"):
+            errs[f"frame {fi} {key}"] = (max_err(g[key].cpu(), w[key])
+                                         / float(w[key].abs().max()))
+    return errs
+
+
+def phase_nuscenes(dev, build, card: str) -> dict:
+    """Phase 13: (a) BEVFormer-tiny from NuScenesPipeline samples on the
+    card (against the CPU, the temporal eval, training with a history
+    queue, decoding and scoring), (b) the Mask2Former occupancy head at the
+    JAX defaults (against the CPU at 50x50x4; forward and training at
+    200x200x16), (c) ``batched_nms`` and ``decode_nms_free`` against the
+    CPU. No kernel lies on this path; returns the launches counted in it."""
+    from stereoscene_torch.core import bbox3d
+    from stereoscene_torch.core.nuscenes_eval import (
+        DETECTION_CLASSES,
+        boxes_from_arrays,
+        evaluate_detections,
+    )
+    from stereoscene_torch.data.nuscenes import (
+        NuScenesIndex,
+        NuScenesPipeline,
+    )
+    from stereoscene_torch.data.pipeline import PipelineConfig
+    from stereoscene_torch.models import bevformer_det, mask2former_occ
+    from stereoscene_torch.ops.resize import resize_trilinear
+    from stereoscene_torch.utils.weights import seeded_init_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    build.launch_counts.clear()
+    stats = mask2former_occ.MATCH_STATS
+
+    # (a) BEVFormer-tiny on NuScenesPipeline samples
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        index = NuScenesIndex(write_nuscenes_infos(tmp, nusc_frames(),
+                                                   SEED + 50))
+        pipe = NuScenesPipeline(PipelineConfig(input_size=NUSC_INPUT),
+                                seed=SEED)
+        samples, host_ms = [], []
+        for i in range(len(index)):
+            t0 = time.perf_counter()
+            samples.append(pipe(index[i]))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+    if samples[0]["imgs"].shape != (6,) + NUSC_INPUT + (3,):
+        raise AssertionError(f"phase 13a pipeline imgs "
+                             f"{samples[0]['imgs'].shape}")
+    l2i = [torch.from_numpy(nusc_lidar2img(s))[None] for s in samples]
+    gen = torch.Generator().manual_seed(SEED + 51)
+    fh, fw, fc = NUSC_FEAT
+    feats = [torch.randn(1, 6, fh * fw, fc, generator=gen) for _ in samples]
+    shapes = [(fh, fw)]
+    cpu_model = bevformer_det.BEVFormerDetector(
+        fc, can_bus=True, device="cpu", **BEVFORMER_TINY).eval()
+    seeded_init_(cpu_model, SEED)
+    model = bevformer_det.BEVFormerDetector(
+        fc, can_bus=True, device=dev, **BEVFORMER_TINY).eval()
+    model.load_state_dict(cpu_model.state_dict())
+    scene_inputs = (index, feats, shapes, l2i)
+    with torch.no_grad():
+        plain_errs = scene_errors(cpu_model, model, scene_inputs, 2)
+        # the layers that steer the sampling (offsets, attention weights)
+        # and the box and class outputs scaled down: a refinement step then
+        # moves the references a little, as a trained head's does; at
+        # seeded_init_'s scale the six refining decoder layers amplify fp32
+        # rounding past any tolerance, which the line prints and does not
+        # hold
+        for m in (cpu_model, model):
+            for name, p in m.named_parameters():
+                if name.endswith(STEERING):
+                    p.mul_(STEERING_SCALE)
+    _, seen = model.bev_encoder.project(l2i[0].to(dev), NUSC_INPUT)
+    seen = seen.any(-1).float().mean(-1)[0].tolist()  # BEV share per camera
+    if not min(seen) > 0:
+        raise AssertionError(f"phase 13a: a camera sees no BEV cell {seen}")
+
+    with torch.no_grad():
+        errs = scene_errors(cpu_model, model, scene_inputs, 2)
+        if not max(errs.values()) <= 1e-3:
+            raise AssertionError(f"phase 13a BEVFormer card vs CPU: {errs}")
+        runs = nusc_scene(model, scene_inputs, 4)
+    eval_ms = [r[1] for r in runs]
+    if [r[2] for r in runs] != [False, True, True, False] \
+            or runs[3][3][:3].any() or runs[3][3][-1] != 0:
+        raise AssertionError("phase 13a PrevFrameInfo: the new scene did "
+                             "not reset the history")
+    out0 = runs[0][0]
+    dims = (tuple(out0["all_cls_scores"].shape),
+            tuple(out0["all_bbox_preds"].shape),
+            tuple(out0["bev_embed"].shape))
+    del runs, out0
+
+    rng = np.random.RandomState(SEED + 52)
+    n_gt = NUSC_GT_BOXES
+    gt_boxes = np.concatenate([
+        rng.uniform(-45, 45, (1, n_gt, 2)), rng.uniform(-3, 1, (1, n_gt, 1)),
+        rng.uniform(0.5, 5, (1, n_gt, 3)),
+        rng.uniform(-np.pi, np.pi, (1, n_gt, 1)),
+        rng.uniform(-5, 5, (1, n_gt, 2))], -1).astype(np.float32)
+    gt_labels = rng.randint(0, 10, (1, n_gt)).astype(np.int64)
+    gt = (torch.from_numpy(gt_boxes).to(dev),
+          torch.from_numpy(gt_labels).to(dev),
+          torch.ones(1, n_gt, dtype=torch.bool, device=dev))
+    state = bevformer_det.PrevFrameInfo()
+    bus = [torch.from_numpy(state.step(index[i]["scene_token"],
+                                       index[i]["can_bus"])[1])
+           for i in range(3)]
+    featsq = torch.stack(feats[:2], 1).to(dev)
+    l2iq = torch.stack(l2i[:2], 1).to(dev)
+    busq = torch.stack(bus[:2])[None].to(dev)
+    cur = (feats[2].to(dev), shapes, l2i[2].to(dev), NUSC_INPUT)
+    model.train()
+    opt = torch.optim.AdamW(model.parameters(), lr=2e-4, weight_decay=0.01)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_losses, match = [], [], []
+    for _ in range(4):
+        before = dict(stats)
+        t0 = time.perf_counter()
+        hist = bevformer_det.obtain_history_bev(
+            model, featsq, shapes, l2iq, NUSC_INPUT, can_bus_queue=busq,
+            prev_bev_exists=[True, True])
+        out = model(*cur, prev_bev=hist, can_bus=bus[2][None].to(dev))
+        losses = bevformer_det.bevformer_detection_loss(out, *gt)
+        opt.zero_grad(set_to_none=True)
+        sum(losses.values()).backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_losses.append({k: float(v.detach()) for k, v in losses.items()})
+        match.append((stats["calls"] - before["calls"],
+                      (stats["copy_s"] - before["copy_s"]) * 1e3,
+                      (stats["solve_s"] - before["solve_s"]) * 1e3))
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_dec = BEVFORMER_TINY["num_decoder_layers"]
+    if any(len(s) != 2 * n_dec or not all(math.isfinite(v)
+                                          for v in s.values())
+           for s in step_losses) or any(m[0] != n_dec for m in match):
+        raise AssertionError(f"phase 13a steps: {step_losses}, matchings "
+                             f"{match}")
+    model.eval()
+    with torch.no_grad():
+        hist = bevformer_det.obtain_history_bev(
+            model, featsq, shapes, l2iq, NUSC_INPUT, can_bus_queue=busq)
+        out = model(*cur, prev_bev=hist, can_bus=bus[2][None].to(dev))
+        dec = bevformer_det.bevformer_get_bboxes(out, max_num=300)
+    t0 = time.perf_counter()
+    gts = boxes_from_arrays(["sample-2"] * n_gt, gt_boxes[0], gt_labels[0],
+                            classes=DETECTION_CLASSES)
+    preds = boxes_from_arrays(
+        ["sample-2"] * 300, dec["boxes"][0].cpu().numpy(),
+        dec["labels"][0].cpu().numpy(), dec["scores"][0].cpu().numpy(),
+        classes=DETECTION_CLASSES)
+    metrics = evaluate_detections(gts, preds)
+    score_ms = (time.perf_counter() - t0) * 1e3
+    if not (0.0 <= metrics.mean_ap <= 1.0 and 0.0 <= metrics.nd_score <= 1.0):
+        raise AssertionError(f"phase 13a scoring: mAP {metrics.mean_ap}, "
+                             f"NDS {metrics.nd_score}")
+    print(f"phase 13a BEVFormer-tiny widths ({BEVFORMER_TINY}; "
+          f"{sum(p.numel() for p in model.parameters())} parameters) on "
+          f"{card}: NuScenesPipeline at {NUSC_INPUT[0]}x{NUSC_INPUT[1]} of "
+          f"six {NUSC_IMAGE[0]}x{NUSC_IMAGE[1]} JPEGs, host ms per sample "
+          f"{statistics.median(host_ms):.1f} (samples "
+          f"{', '.join(f'{t:.1f}' for t in host_ms)}); share of the BEV "
+          f"each camera sees {', '.join(f'{v:.3f}' for v in seen)}; "
+          f"seeded features {fh}x{fw}x{fc}; outputs {dims}; card vs CPU "
+          f"(fp32, TF32 off, 2 frames, the second with prev_bev and "
+          f"can_bus; sampling-offset, attention-weight and box/class output "
+          f"layers at {STEERING_SCALE}x seeded_init_): "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())} of "
+          f"max|ref| (at 1x, not held: "
+          f"{', '.join(f'{v:.2e}' for v in plain_errs.values())}); fp32 "
+          f"eval forward ms through PrevFrameInfo "
+          f"{statistics.median(eval_ms[:3]):.1f} (median of the scene's 3 "
+          f"frames; samples {', '.join(f'{t:.1f}' for t in eval_ms)}; "
+          f"frame 4, a new scene, reset the history); 4 fp32 AdamW steps at "
+          f"B = 1, each with a 2-frame history and {n_gt} seeded boxes: ms "
+          f"per step {statistics.median(step_ms[1:]):.1f} (median of the "
+          f"last 3; samples {', '.join(f'{t:.1f}' for t in step_ms)}), peak "
+          f"{train_peak:.2f} GiB, Hungarian matchings a step "
+          f"{match[-1][0]}: copy to host (waits for the forward) ms "
+          f"{', '.join(f'{m[1]:.2f}' for m in match)}, scipy ms "
+          f"{', '.join(f'{m[2]:.2f}' for m in match)}; losses first "
+          f"{ {k: round(v, 4) for k, v in step_losses[0].items()} }, last "
+          f"{ {k: round(v, 4) for k, v in step_losses[-1].items()} }; "
+          f"bevformer_get_bboxes (300) + evaluate_detections ({score_ms:.1f}"
+          f" host ms): mAP {metrics.mean_ap:.4f}, NDS "
+          f"{metrics.nd_score:.4f}; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del model, cpu_model, opt, out, hist, featsq
+    torch.cuda.empty_cache()
+
+    # (b) the Mask2Former occupancy head at the JAX defaults
+    t_phase = time.perf_counter()
+    cpu_head = mask2former_occ.Mask2FormerOccHead(
+        M2F_IN, device="cpu", **MASK2FORMER).eval()
+    seeded_init_(cpu_head, SEED)
+    head = mask2former_occ.Mask2FormerOccHead(
+        M2F_IN, device=dev, **MASK2FORMER).eval()
+    head.load_state_dict(cpu_head.state_dict())
+    n_layers = MASK2FORMER["num_layers"]
+
+    def with_masks(m, x):
+        masks = []
+        hooks = [getattr(m, f"layer{i}").cross_attn.register_forward_pre_hook(
+            lambda mod, args: masks.append(args[-1].cpu()))
+            for i in range(n_layers)]
+        out = m(x)
+        for h in hooks:
+            h.remove()
+        return out, masks
+
+    x_small = torch.randn(1, *M2F_SMALL, M2F_IN, generator=gen)
+    with torch.no_grad():
+        want, wmasks = with_masks(cpu_head, x_small)
+        got, gmasks = with_masks(head, x_small.to(dev))
+        pairs = [("cls_logits", got["cls_logits"], want["cls_logits"]),
+                 ("mask_logits", got["mask_logits"], want["mask_logits"])]
+        for i, ((gc, gm), (wc, wm)) in enumerate(zip(got["aux"],
+                                                     want["aux"])):
+            pairs += [(f"aux{i} cls", gc, wc), (f"aux{i} mask", gm, wm)]
+        m2f_errs = {k: max_err(g.cpu(), w) / float(w.abs().max())
+                    for k, g, w in pairs}
+        half = tuple(n // 2 for n in M2F_SMALL)
+        near = 0
+        for i, (_, logits) in enumerate(want["aux"]):
+            level = (half, M2F_SMALL)[i % 2]
+            r = resize_trilinear(logits.reshape(1, -1, *M2F_SMALL, 1), level)
+            near += int((r.abs() < 1e-5).sum())
+    masks_equal = all(torch.equal(g, w) for g, w in zip(gmasks, wmasks))
+    masked = [float(w.float().mean()) for w in wmasks]
+    if not max(m2f_errs.values()) <= 1e-3 or not masks_equal \
+            or len(gmasks) != n_layers:
+        raise AssertionError(f"phase 13b Mask2Former card vs CPU: "
+                             f"{m2f_errs}; masks equal {masks_equal}; "
+                             f"{near} resampled logits within 1e-5 of 0")
+    del cpu_head, want, got
+
+    x = torch.randn(1, *NUSC_OCC, M2F_IN, generator=gen).to(dev)
+    n_cls = MASK2FORMER["num_classes"]
+    coarse = torch.randint(0, 17, (1,) + tuple(n // 8 for n in NUSC_OCC),
+                           generator=gen)
+    labels = coarse.repeat_interleave(8, 1).repeat_interleave(
+        8, 2).repeat_interleave(8, 3).to(dev)
+    classes = torch.arange(n_cls, device=dev)[None]
+    tgt_masks = (labels[:, None] == classes[..., None, None, None]).float()
+    tgt_valid = tgt_masks.flatten(2).any(-1)
+    try:
+        with torch.no_grad():
+            fwd_ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = head(x)
+                torch.cuda.synchronize()
+                fwd_ms.append((time.perf_counter() - t0) * 1e3)
+            sem = mask2former_occ.semantic_inference(out["cls_logits"],
+                                                     out["mask_logits"])
+            if tuple(sem.shape) != (1,) + NUSC_OCC + (n_cls,) \
+                    or not bool(torch.isfinite(sem).all()):
+                raise AssertionError(f"phase 13b semantic_inference "
+                                     f"{tuple(sem.shape)}")
+            del out, sem
+        head.train()
+        opt = torch.optim.AdamW(head.parameters(), lr=1e-4,
+                                weight_decay=0.01)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m2f_ms, m2f_losses = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            losses = mask2former_occ.mask2former_loss_all_layers(
+                head(x), tgt_masks, classes.expand(1, n_cls), tgt_valid)
+            opt.zero_grad(set_to_none=True)
+            sum(losses.values()).backward()
+            opt.step()
+            torch.cuda.synchronize()
+            m2f_ms.append((time.perf_counter() - t0) * 1e3)
+            m2f_losses.append({k: float(v.detach())
+                               for k, v in losses.items()})
+        m2f_peak = torch.cuda.max_memory_allocated() / 2**30
+    except torch.cuda.OutOfMemoryError as exc:
+        raise AssertionError(f"phase 13b: the {NUSC_OCC} grid does not fit "
+                             f"on {card}: {exc}") from exc
+    if any(len(s) != 3 * (n_layers + 1) or not all(math.isfinite(v)
+                                                   for v in s.values())
+           for s in m2f_losses):
+        raise AssertionError(f"phase 13b steps: {m2f_losses}")
+    final = {k: round(v, 4) for k, v in m2f_losses[0].items()
+             if "aux" not in k}
+    print(f"phase 13b Mask2FormerOccHead ({MASK2FORMER}, in {M2F_IN}) on "
+          f"{card}: {M2F_SMALL} card vs CPU (fp32, TF32 off) "
+          f"{max(m2f_errs.values()):.2e} of max|ref| (worst of "
+          f"{len(m2f_errs)} outputs), attention masks equal on "
+          f"{n_layers} layers (masked share "
+          f"{', '.join(f'{v:.3f}' for v in masked)}), {near} resampled "
+          f"mask logits within 1e-5 of 0; {NUSC_OCC}: fp32 forward ms "
+          f"{statistics.median(fwd_ms[1:]):.1f} (samples "
+          f"{', '.join(f'{t:.1f}' for t in fwd_ms)}), semantic_inference "
+          f"[1, {', '.join(map(str, NUSC_OCC))}, {n_cls}]; 2 AdamW steps on "
+          f"mask2former_loss_all_layers ({int(tgt_valid.sum())} seeded "
+          f"classes): ms per step {', '.join(f'{t:.1f}' for t in m2f_ms)}, "
+          f"peak {m2f_peak:.2f} GiB; the last layer's losses at step 1 "
+          f"{final}, {len(m2f_losses[0])} terms finite; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del head, opt, x, tgt_masks, labels
+    torch.cuda.empty_cache()
+
+    # (c) the box core on the card against the CPU
+    rng = np.random.RandomState(SEED + 53)
+    lo = rng.uniform(-50, 45, (900, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [lo, lo + rng.uniform(0.5, 6, (900, 2))], 1).astype(np.float32))
+    scores = torch.from_numpy(rng.rand(900).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, 10, 900))
+    keep = bbox3d.batched_nms(boxes, scores, labels, 0.5, 300)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keep_card = bbox3d.batched_nms(boxes.to(dev), scores.to(dev),
+                                   labels.to(dev), 0.5, 300)
+    torch.cuda.synchronize()
+    nms_ms = (time.perf_counter() - t0) * 1e3
+    cls = torch.from_numpy(rng.randn(1, 900, 10).astype(np.float32))
+    preds = torch.from_numpy(np.concatenate([
+        rng.uniform(-60, 60, (1, 900, 2)), rng.uniform(-5, 3, (1, 900, 1)),
+        rng.randn(1, 900, 3),
+        rng.randn(1, 900, 2), rng.randn(1, 900, 2)], -1).astype(np.float32))
+    dec = bbox3d.decode_nms_free(cls, preds, max_num=300)
+    dec_card = bbox3d.decode_nms_free(cls.to(dev), preds.to(dev),
+                                      max_num=300)
+    # the picks equal; the scores and boxes (sigmoid, exp, atan2 on each
+    # device) to fp32 rounding
+    dec_equal = {k: torch.equal(dec_card[k].cpu(), dec[k])
+                 for k in ("labels", "valid")}
+    dec_err = {k: max_err(dec_card[k].cpu(), dec[k])
+               / float(dec[k].abs().max()) for k in ("scores", "boxes")}
+    if not torch.equal(keep_card.cpu(), keep) or not all(dec_equal.values()) \
+            or not max(dec_err.values()) <= 1e-6:
+        raise AssertionError(f"phase 13c: batched_nms equal "
+                             f"{torch.equal(keep_card.cpu(), keep)}, "
+                             f"decode_nms_free {dec_equal}, {dec_err}")
+    launches = dict(build.launch_counts)
+    print(f"phase 13c batched_nms on 900 seeded boxes (10 classes, IoU 0.5, "
+          f"max 300) on {card}: keep mask bitwise equal to the CPU "
+          f"({int(keep.sum())} kept; {nms_ms:.1f} ms); decode_nms_free "
+          f"[1, 900, 10] -> 300: labels and the in-range mask equal to the "
+          f"CPU's ({int(dec['valid'].sum())} in range), scores and boxes "
+          f"within {', '.join(f'{v:.2e}' for v in dec_err.values())} of "
+          f"max|ref| (1e-6 held); phase 13 kernel launches "
+          f"{launches or 'none (no TPU kernel lies on this path)'}; phase 13 "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -2331,6 +2839,7 @@ def main() -> None:
         optional = phase_optional(dev, _build, card, tmp, tree)
         torch.cuda.empty_cache()
     variants = phase_bevocc(dev, _build, card)
+    nuscenes = phase_nuscenes(dev, _build, card)
     for path, counts, needs in (
             ("serving", serving, ("gwc_warp", "dcn_gather",
                                   "lift_splat_fused")),
@@ -2367,7 +2876,7 @@ def main() -> None:
         k["launches"] = sum(run.get(k["name"], 0)
                             for run in (serving, training, evaluation,
                                         train_cli, data_parallel, optional,
-                                        variants))
+                                        variants, nuscenes))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

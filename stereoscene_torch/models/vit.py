@@ -26,8 +26,13 @@ from .bevformer import LayerNorm32
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention (flax ``MultiHeadDotProductAttention``
-    with ``qkv_features == dim``)."""
+    """Multi-head attention, flax ``MultiHeadDotProductAttention`` with
+    ``qkv_features == dim``: per-head query / key / value projections
+    (flax DenseGeneral [dim, heads, dh] plus bias, held as Linear layers)
+    and the ``out`` projection from [heads, dh]. ``inputs_k`` defaults to
+    ``inputs_q`` and ``inputs_v`` to ``inputs_k``, as in flax."""
+
+    dense_general = {"query": "in", "key": "in", "value": "in", "out": "out"}
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -37,15 +42,17 @@ class Attention(nn.Module):
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
 
-    def forward(self, x):
-        b, n, d = x.shape
+    def forward(self, inputs_q, inputs_k=None, inputs_v=None):
+        inputs_k = inputs_q if inputs_k is None else inputs_k
+        inputs_v = inputs_k if inputs_v is None else inputs_v
+        b, n, d = inputs_q.shape
         h = self.num_heads
 
         def heads(t):
-            return t.reshape(b, n, h, d // h).transpose(1, 2)
+            return t.reshape(b, -1, h, d // h).transpose(1, 2)
 
-        q = heads(self.query(x)) / math.sqrt(d // h)
-        k, v = heads(self.key(x)), heads(self.value(x))
+        q = heads(self.query(inputs_q)) / math.sqrt(d // h)
+        k, v = heads(self.key(inputs_k)), heads(self.value(inputs_v))
         attn = torch.softmax((q @ k.transpose(-1, -2)).float(), dim=-1)
         y = attn.to(v.dtype) @ v
         return self.out(y.transpose(1, 2).reshape(b, n, d))

@@ -25,8 +25,11 @@ backbone keeping the reference layout. The variant modules whose
 submodules carry the JAX scope names (``models/necks3d.py``,
 ``bevformer.py``, ``vit.py`` ...) map through ``module_rules``, which
 reads the rules off the JAX module's own trees; ``load_rules`` and
-``rules_trees`` apply any map. The trees hold copies, never views of the
-port's tensors.
+``rules_trees`` apply any map. The nuScenes family's models
+(``BEVFormerDetector``, ``Mask2FormerOccHead``) name every submodule after
+its JAX scope, so their map is ``module_rules`` over ``flax_template``, the
+tree of flax shapes read off the port module itself. The trees hold
+copies, never views of the port's tensors.
 
 ``seeded_init_(model, seed)`` gives every tensor a deterministic value from a
 ``torch.Generator``, with the zero-initialised gates (BRI ``gamma``, CA3D
@@ -357,10 +360,14 @@ def _flatten(tree, prefix=""):
 
 
 def _model_map(model) -> _Map:
+    from ..models.bevformer_det import BEVFormerDetector
     from ..models.bevocc import BEVOcc
+    from ..models.mask2former_occ import Mask2FormerOccHead
 
     if isinstance(model, BEVOcc):
         return bevocc_name_map(model)
+    if isinstance(model, (BEVFormerDetector, Mask2FormerOccHead)):
+        return module_rules(model, flax_template(model))
     return flax_name_map(model.cfg, model.pts_bbox_head)
 
 
@@ -396,7 +403,8 @@ def load_rules(module, name_map: _Map, params, batch_stats=None) -> None:
 
 def load_flax_params(model, params, batch_stats) -> None:
     """Copy the JAX package's ``params`` / ``batch_stats`` trees into the
-    port ``model`` (a ``BEVDepthOccupancy`` or a ``BEVOcc``), strictly
+    port ``model`` (a ``BEVDepthOccupancy``, a ``BEVOcc``, a
+    ``BEVFormerDetector`` or a ``Mask2FormerOccHead``), strictly
     (``load_rules``)."""
     load_rules(model, _model_map(model), params, batch_stats)
 
@@ -435,9 +443,9 @@ def rules_trees(module, name_map: _Map, tensors=None):
 
 
 def flax_trees(model, tensors=None):
-    """The port ``model``'s (a ``BEVDepthOccupancy`` or a ``BEVOcc``)
-    parameters and BatchNorm statistics as the JAX package's ``(params,
-    batch_stats)`` trees (``rules_trees``)."""
+    """The port ``model``'s (as in ``load_flax_params``) parameters and
+    BatchNorm statistics as the JAX package's ``(params, batch_stats)``
+    trees (``rules_trees``)."""
     return rules_trees(model, _model_map(model), tensors)
 
 
@@ -561,6 +569,44 @@ def module_rules(module, params, batch_stats=None,
             rules[path] = (f"{mod_path}.{key}" if mod_path else key, fwd,
                            inv)
     return m
+
+
+def flax_template(module):
+    """The flax ``params`` tree of a port module whose submodules carry the
+    JAX scope names and are flax's own layers, as read-only zero arrays of
+    the flax shapes: a Linear is a Dense [in, out], or a DenseGeneral where
+    its parent's ``dense_general`` names it ("in": [in, heads, dh] with a
+    [heads, dh] bias; "out": [heads, dh, out]); a LayerNorm or GroupNorm
+    holds scale and bias; a conv its [k..., in, out] kernel; any other
+    module's own parameters keep their name and shape."""
+    mods = dict(module.named_modules())
+    flat = {}
+    for path, mod in mods.items():
+        pre = path.replace(".", "/") + "/" if path else ""
+        if isinstance(mod, nn.Linear):
+            parent, _, name = path.rpartition(".")
+            kind = getattr(mods[parent], "dense_general", {}).get(name)
+            heads = getattr(mods[parent], "num_heads", 1)
+            cout, cin = mod.weight.shape
+            kernel, bias = {
+                "in": ((cin, heads, cout // heads), (heads, cout // heads)),
+                "out": ((heads, cin // heads, cout), (cout,)),
+            }.get(kind, ((cin, cout), (cout,)))
+            leaves = {"kernel": kernel, "bias": bias}
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+            leaves = {"scale": tuple(mod.weight.shape),
+                      "bias": tuple(mod.bias.shape)}
+        elif isinstance(mod, nn.modules.conv._ConvNd):
+            cout, cin = mod.weight.shape[:2]
+            leaves = {"kernel": tuple(mod.weight.shape[2:]) + (cin, cout),
+                      "bias": None if mod.bias is None else (cout,)}
+        else:
+            leaves = {name: tuple(p.shape)
+                      for name, p in mod.named_parameters(recurse=False)}
+        for name, shape in leaves.items():
+            if shape is not None:
+                flat[pre + name] = np.broadcast_to(np.float32(0), shape)
+    return _unflatten(flat)
 
 
 @torch.no_grad()
