@@ -151,10 +151,26 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    per step, peak memory (a grid that does not fit fails the phase); (c)
    ``batched_nms`` on 900 seeded boxes and ``decode_nms_free`` on
    [1, 900, 10] equal to their CPU runs.
+14. the high-resolution config (``stereoscene_torch/configs/
+   stereoscene_highres.py``: a 256x256x32 grid, seeded 512x512x64 labels,
+   the streaming losses over 16 Y-slabs) with ``bev_with_cp`` and K4 on
+   seeded weights: (a) bf16 AdamW steps at B = 1 and, where twice B = 1's
+   peak fits in 90% of the card, at B = 2: ms per step and peak; the fp32
+   eval forward through ``infer`` -> [1, 512, 512, 64]; K3 on the highres
+   plan against its plain version (1e-4 of max|ref|), timed beside
+   ``F.embedding_bag``; K4 at ResNet3D level 0's [1, 128, 256, 256, 32]
+   against its plain version (fp32 1e-4, bf16 2e-2 of max|ref|), timed
+   beside cuDNN; (b) two ranks spawned on the one card over gloo, laid
+   out as data 1 x space 2 (``parallel.init_space``), each on its X slab
+   of 128 planes, one fp32 step (TF32 off) against one process on the
+   same batch and weights: every loss term within 1e-4 relative, every
+   gradient leaf within 2% (floor 1e-4 of the global scale), the ranks'
+   parameter digests equal; ms per step, halo bytes sent and peak per
+   rank.
 
 Then one JSON line with each kernel (its launches in the serving, bf16
 training, eval, train CLI, data-parallel, optional-branch, phase 12b /
-12c and phase 13 runs, each
+12c, phase 13 and phase 14 runs, each
 counted from 0 just
 before its run, its
 error, its times and its bound from phases 2-4c; the
@@ -225,6 +241,11 @@ NUSC_OCC = (200, 200, 16)
 K4_SHAPES = {"hourglass conv2": ((64, 56, 24, 80, 64), 4),
              "hourglass conv4": ((128, 28, 12, 40, 128), 4),
              "resnet3d stage 1": ((128, 64, 64, 8, 128), 4)}
+# phase 14: the high-resolution config, its bf16 steps a batch size (the
+# first left out of the times), its two-rank sharded step's deadline
+HIGHRES_CONFIG = "stereoscene_highres.py"
+HIGHRES_STEPS = 3
+SP_TIMEOUT_S = 600.0
 
 
 def cuda_ms(fn, iters: int = 20, reps: int = 1) -> float:
@@ -2769,6 +2790,389 @@ def phase_nuscenes(dev, build, card: str) -> dict:
     return launches
 
 
+def highres_batch(cfg, label_shape, b: int, seed: int, dev) -> dict:
+    """``b`` flagship frames (seeded images, one calibration) with seeded
+    labels [b, *label_shape] in [0, 20) with 10% ignore (255), and a
+    sparse LiDAR-like gt_depth [b, 1, H, W] (7% of pixels)."""
+    gen = torch.Generator().manual_seed(seed)
+    frames = [flagship_batch(cfg, seed + i, "cpu") for i in range(b)]
+    batch = {k: torch.cat([f[k] for f in frames]) for k in frames[0]}
+    occ = torch.randint(0, 20, (b,) + tuple(label_shape), generator=gen)
+    ignore = torch.rand(occ.shape, generator=gen) < 0.1
+    batch["gt_occ"] = torch.where(ignore, 255, occ).to(torch.int32)
+    h, w = cfg.input_size
+    hit = torch.rand(b, 1, h, w, generator=gen) < 0.07
+    lo, hi, _ = cfg.dbound
+    depth = lo + (hi - lo) * torch.rand(b, 1, h, w, generator=gen)
+    batch["gt_depth"] = depth * hit
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def highres_setup():
+    """(the highres config's DetectorConfig with ``bev_with_cp``, its label
+    shape, the train CLI's LossConfig for it)."""
+    import dataclasses
+
+    import stereoscene_torch
+    from stereoscene_torch.config import Config
+    from stereoscene_torch.models.detector import DetectorConfig
+    from stereoscene_torch.tools.train import loss_config
+
+    cfg = Config.fromfile(os.path.join(os.path.dirname(
+        stereoscene_torch.__file__), "configs", HIGHRES_CONFIG))
+    det = dataclasses.replace(DetectorConfig.from_config(cfg),
+                              bev_with_cp=True)
+    return det, tuple(cfg["occ_size"]), loss_config(cfg, det)
+
+
+def recorded_step(train, loss_cfg, state, batch, generator):
+    """One fp32 train step (``make_train_step``); -> (logs, the gradients
+    it applied, after the reduction over ranks, by parameter name)."""
+    applied = []
+    apply = train.apply_gradients
+
+    def record(state, grads):
+        applied.append([g.detach().cpu() for g in grads])
+        apply(state, grads)
+
+    train.apply_gradients = record
+    try:
+        _, logs = train.make_train_step(loss_cfg)(state, batch, generator)
+    finally:
+        train.apply_gradients = apply
+    return ({k: float(v) for k, v in logs.items()},
+            dict(zip([n for n, _ in state.trainable], applied[0])))
+
+
+def sp_rank(rank: int, url: str, weights: str, batch_file: str,
+            reference: str, out: str) -> None:
+    """One rank of phase 14b, in a spawned process: joins the two-rank gloo
+    group at ``url`` on the one card laid out as (data 1, space 2), takes
+    one fp32 step of the highres model with ``bev_with_cp`` and K4 on its
+    X slab (TF32 off), holds the gradients it applied against the
+    one-process ones in ``reference`` and writes the results to ``out``
+    as JSON."""
+    from stereoscene_torch import _build, parallel
+    from stereoscene_torch.engine import train
+    from stereoscene_torch.models.detector import BEVDepthOccupancy
+    from stereoscene_torch.parallel import spatial
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det, label_shape, loss_cfg = highres_setup()
+    dev = parallel.init_distributed(url, 2, rank, "cuda", backend="gloo",
+                                    timeout_s=SP_TIMEOUT_S)
+    try:
+        parallel.init_space(2)
+        model = BEVDepthOccupancy(det, conv3d_kernel=True,
+                                  label_shape=label_shape)
+        model.load_state_dict(torch.load(weights, weights_only=True))
+        state = train.create_train_state(model)
+        batch = {k: v.to(dev) for k, v in
+                 torch.load(batch_file, weights_only=True).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        halo0 = dict(spatial.HALO_STATS)
+        t0 = time.perf_counter()
+        logs, grads = recorded_step(
+            train, loss_cfg, state, batch,
+            torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(_build.launch_counts)
+        halo = {k: spatial.HALO_STATS[k] - halo0[k] for k in halo0}
+        digest = param_digest(state.model)
+    finally:
+        parallel.shutdown()
+    ref = torch.load(reference, weights_only=True)
+    scale = max(float(g.abs().max()) for g in ref["grads"].values())
+    bad, worst = [], 0.0
+    for name, want in ref["grads"].items():
+        got = grads[name]
+        leaf = max(float(want.abs().max()), float(got.abs().max()), 1e-6)
+        err = float((got - want).abs().max())
+        worst = max(worst, err / leaf)
+        if not (math.isfinite(err) and err <= max(2e-2 * leaf,
+                                                  1e-4 * scale)):
+            bad.append((name, err / leaf))
+    with open(out, "w") as f:
+        json.dump(dict(logs=logs, ref_logs=ref["logs"], step_ms=step_ms,
+                       peak=peak, launches=launches, halo=halo,
+                       digest=digest, bad=bad, leaves=len(ref["grads"]),
+                       worst=worst, floor=1e-4 * scale), f)
+
+
+def phase_highres(dev, build, card: str, tmp: str) -> dict:
+    """Phase 14: the high-resolution config (a 256x256x32 grid, 512x512x64
+    labels). (a) one process: bf16 AdamW steps with ``bev_with_cp`` at
+    B = 1 and B = 2 on seeded weights and labels, ms per step and peak
+    (B = 2 only where twice B = 1's peak fits); an fp32 eval forward
+    through ``infer``; K3 on the highres plan and K4 at ResNet3D level 0's
+    shape against their plain versions, timed beside their library calls;
+    (b) two gloo ranks on the one card sharding the grid's X over a space
+    group of 2: one fp32 step against one process on the same batch.
+    Returns the launches of the steps, the eval and the ranks."""
+    from stereoscene_torch.engine import train
+    from stereoscene_torch.models.detector import BEVDepthOccupancy
+    from stereoscene_torch.ops import conv3d, voxel_pool
+    from stereoscene_torch.utils.weights import seeded_init_
+
+    t_start = time.perf_counter()
+    det, label_shape, loss_cfg = highres_setup()
+    total_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    launches = collections.Counter()
+
+    # (a) bf16 steps at B = 1, then B = 2 where it fits
+    model = BEVDepthOccupancy(det, conv3d_kernel=True,
+                              label_shape=label_shape)
+    seeded_init_(model, SEED)
+    state = train.create_train_state(model)
+    step = train.make_train_step(loss_cfg, bf16=True)
+    runs = {}
+    for b in (1, 2):
+        if b == 2 and 2 * runs[1]["peak"] > 0.9 * total_gib:
+            runs[2] = None
+            break
+        batch = highres_batch(det, label_shape, b, SEED + 40, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.launch_counts.clear()
+        times, losses = [], []
+        for _ in range(HIGHRES_STEPS):
+            t0 = time.perf_counter()
+            state, logs = step(state, batch,
+                               torch.Generator(device=dev).manual_seed(SEED))
+            losses.append({k: float(v) for k, v in logs.items()})
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches.update(build.launch_counts)
+        runs[b] = dict(times=times, losses=losses, launches=dict(
+            build.launch_counts),
+            peak=torch.cuda.max_memory_allocated() / 2**30)
+        # bev_with_cp's recompute launches K1 and P1 again
+        per = {k: v / HIGHRES_STEPS for k, v in build.launch_counts.items()}
+        if (not all(math.isfinite(v) for logs in losses
+                    for v in logs.values())
+                or per.get("gwc_warp") != 2 or per.get("dcn_gather") != 2
+                or per.get("conv3d_s1", 0) < 12):
+            raise AssertionError(f"phase 14a bf16 B = {b}: losses {losses}, "
+                                 f"launches {dict(build.launch_counts)}")
+        del batch
+    torch.cuda.empty_cache()
+
+    # the fp32 eval forward through infer (the serving tail), twice: the
+    # first call builds and caches the highres plan on the host
+    cpu_batch = highres_batch(det, label_shape, 1, SEED + 41, "cpu")
+    frame = {k: v.to(dev) for k, v in cpu_batch.items()
+             if not k.startswith("gt_")}
+    model.eval()
+    build.launch_counts.clear()
+    eval_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        classes = model.infer(frame)
+        torch.cuda.synchronize()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    eval_launches = dict(build.launch_counts)
+    launches.update(eval_launches)
+    if (tuple(classes.shape) != (1,) + label_shape
+            or int(classes.min()) < 0 or int(classes.max()) >= 20
+            or eval_launches.get("lift_splat_fused", 0) < 2):
+        raise AssertionError(f"phase 14a eval: classes "
+                             f"{tuple(classes.shape)}, launches "
+                             f"{eval_launches}")
+    del classes
+    torch.cuda.empty_cache()
+
+    # K3 on the highres plan (fp32 tables, eval's dtype)
+    x = splat_inputs(model, {k: v for k, v in cpu_batch.items()
+                             if not k.startswith("gt_")}, dev)
+    dp, feat, order, bounds = x["dp"], x["feat"], x["order"], x["bounds"]
+    group, nvox, c = x["group"], x["nvox"], feat.shape[1]
+
+    def fused(use_kernel):
+        return voxel_pool.lift_splat_fused(dp, feat, order, bounds, group,
+                                           nvox, use_kernel=use_kernel)
+
+    want = fused(False)
+    err3 = check_close("phase 14 splat fused (highres)", fused(True), want,
+                       1e-4 * float(want.abs().max()), 0.0)
+    ms3, plain3 = cuda_ms(lambda: fused(True)), cuda_ms(lambda: fused(False))
+    lib3 = cuda_ms(splat_library(dp, feat, order, bounds, group))
+    live = int((order < dp.numel()).sum())
+    k3 = dict(max_abs_err=err3, ms=ms3, plain_ms=plain3, library_ms=lib3,
+              **bound(nbytes(dp, feat, order, bounds, want), 2 * live * c,
+                      torch.float32))
+    del x, dp, feat, want, model, state, frame
+    torch.cuda.empty_cache()
+
+    # K4 at ResNet3D level 0: [1, 128, 256, 256, 32] -> 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    xs, ys, zs = det.grid_shape
+    ci = co = det.voxel_channels[0]
+    xk = torch.randn(1, ci, xs, ys, zs, generator=gen, device=dev)
+    wk = torch.randn(co, ci, 3, 3, 3, generator=gen, device=dev) * ci ** -0.5
+    torch.backends.cudnn.allow_tf32 = False
+    errs4 = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        xd, wd = xk.to(dtype), wk.to(dtype)
+        want = conv3d.conv3d_s1_plain(xd, wd)
+        errs4[dtype] = check_close(
+            f"phase 14 conv3d level 0 {dtype}",
+            conv3d.conv3d_s1(xd, wd, use_kernel=True), want,
+            tol * float(want.float().abs().max()), 0.0)
+        del want
+    torch.backends.cudnn.allow_tf32 = True
+    xp, wb = xk.bfloat16(), wk.bfloat16()
+    del xk
+    xb = xp.contiguous(memory_format=torch.channels_last_3d)
+    wcl = wb.contiguous(memory_format=torch.channels_last_3d)
+    ms4 = cuda_ms(lambda: conv3d.conv3d_s1(xb, wb, use_kernel=True), iters=10)
+    plain4 = cuda_ms(lambda: conv3d.conv3d_s1_plain(xp, wb), iters=10)
+    lib4 = cuda_ms(lambda: torch.nn.functional.conv3d(xb, wcl, padding=1),
+                   iters=10)
+    y4 = conv3d.conv3d_s1(xb, wb, use_kernel=True)
+    flop4 = 2 * y4.numel() * 27 * ci
+    k4 = dict(max_abs_err=max(errs4.values()), ms=ms4, plain_ms=plain4,
+              library_ms=lib4, **bound(nbytes(xb, wb, y4), flop4,
+                                       torch.bfloat16))
+    del xp, xb, wb, wcl, y4
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_start
+
+    # (b) the grid sharded over two gloo ranks, fp32, B = 1, TF32 off,
+    # against one process on the same batch and weights
+    t_b = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = BEVDepthOccupancy(det, conv3d_kernel=True,
+                              label_shape=label_shape)
+    seeded_init_(model, SEED + 1)
+    files = {k: os.path.join(tmp, f"sp_{k}.pt")
+             for k in ("weights", "batch", "reference")}
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               files["weights"])
+    batch = highres_batch(det, label_shape, 1, SEED + 43, dev)
+    torch.save({k: v.cpu() for k, v in batch.items()}, files["batch"])
+    state = train.create_train_state(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    ref_logs, ref_grads = recorded_step(
+        train, loss_cfg, state, batch,
+        torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    launches.update(build.launch_counts)
+    torch.save({"logs": ref_logs, "grads": ref_grads}, files["reference"])
+    del model, state, batch, ref_grads
+    torch.cuda.empty_cache()
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    url = f"tcp://127.0.0.1:{free_port()}"
+    outs = [os.path.join(tmp, f"sp_rank{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=sp_rank, args=(
+        r, url, files["weights"], files["batch"], files["reference"],
+        outs[r])) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    if any(p.exitcode for p in procs):
+        raise AssertionError(f"phase 14b ranks exited with "
+                             f"{[p.exitcode for p in procs]}")
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    rel = max(abs(v - ref_logs[k]) / abs(ref_logs[k])
+              for k, v in ranks[0]["logs"].items())
+    for r in ranks:
+        launches.update(r["launches"])
+        for name in ("gwc_warp", "dcn_gather", "conv3d_s1"):
+            if r["launches"].get(name, 0) < 1:
+                raise AssertionError(f"phase 14b: {name} never launched on "
+                                     f"a rank ({r['launches']})")
+    if (ranks[0]["logs"] != ranks[1]["logs"] or rel > 1e-4
+            or ranks[0]["digest"] != ranks[1]["digest"]
+            or any(r["bad"] for r in ranks)):
+        raise AssertionError(
+            f"phase 14b sharded vs one process: losses {ranks[0]['logs']} / "
+            f"{ranks[1]['logs']} vs {ref_logs} (largest relative "
+            f"{rel:.2e}, limit 1e-4); digests {ranks[0]['digest']} / "
+            f"{ranks[1]['digest']}; leaves off "
+            f"{[sorted(r['bad'], key=lambda b: -b[1])[:5] for r in ranks]}")
+    t_b = time.perf_counter() - t_b
+
+    def fmt(run):
+        return (f"ms per step {statistics.median(run['times'][1:]):.1f} "
+                f"(samples {', '.join(f'{t:.1f}' for t in run['times'])}), "
+                f"peak {run['peak']:.2f} GiB, loss_total "
+                f"{run['losses'][0]['loss_total']:.4f} -> "
+                f"{run['losses'][-1]['loss_total']:.4f}")
+
+    b2 = (fmt(runs[2]) if runs[2] is not None else
+          f"not run: twice B = 1's peak ({2 * runs[1]['peak']:.2f} GiB) "
+          f"exceeds 90% of the card's {total_gib:.1f} GiB")
+    print(f"phase 14a highres ({HIGHRES_CONFIG}: grid "
+          f"{'x'.join(map(str, det.grid_shape))}, labels "
+          f"{'x'.join(map(str, label_shape))}, D {det.num_depth}, "
+          f"stream_voxel_chunks {loss_cfg.stream_voxel_chunks}, bev_with_cp, "
+          f"K4 on) on {card}: bf16 AdamW steps at B = 1: {fmt(runs[1])}; "
+          f"at B = 2: {b2}; launches a step at B = 1 "
+          f"{ {k: v // HIGHRES_STEPS for k, v in runs[1]['launches'].items()} }"
+          f"; fp32 eval forward through infer -> "
+          f"[1, {', '.join(map(str, label_shape))}] ms "
+          f"{eval_ms[1]:.1f} (the first, building the plan on the host: "
+          f"{eval_ms[0]:.1f}); K3 on the highres plan ({len(order)} rows, "
+          f"{live} live -> [{nvox}, {c}]): max abs err {err3:.3e}, kernel "
+          f"{ms3:.4f} ms plain {plain3:.4f} ms embedding_bag {lib3:.4f} ms "
+          f"bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}, the kernel at "
+          f"{k3['bound_ms'] / ms3:.1%} of it); K4 at ResNet3D level 0 "
+          f"[1, {ci}, {xs}, {ys}, {zs}] -> {co}: max abs err fp32 "
+          f"{errs4[torch.float32]:.3e} bf16 {errs4[torch.bfloat16]:.3e}; "
+          f"bf16 kernel {ms4:.3f} ms ({flop4 / ms4 / 1e9:.1f} TFLOP/s, "
+          f"{k4['bound_ms'] / ms4:.1%} of the bound) plain {plain4:.3f} ms "
+          f"cuDNN {lib4:.3f} ms ({ms4 / lib4:.2f}x cuDNN) bound "
+          f"{k4['bound_ms']:.3f} ms ({k4['bound_by']}); {t_a:.1f} s",
+          flush=True)
+    print(f"phase 14b highres sharded over 2 gloo ranks on {card} (data 1 x "
+          f"space 2, X slabs of {det.grid_shape[0] // 2}; two ranks "
+          f"time-slicing one card), fp32 B = 1, TF32 off, bev_with_cp, K4 "
+          f"on: loss_total {ranks[0]['logs']['loss_total']:.6f} vs one "
+          f"process {ref_logs['loss_total']:.6f} (largest relative "
+          f"difference of {len(ref_logs)} terms {rel:.2e}, limit 1e-4); "
+          f"{ranks[0]['leaves']} gradient leaves within 2% (floor "
+          f"{ranks[0]['floor']:.2e}; worst "
+          f"{max(r['worst'] for r in ranks):.2e} of its leaf); parameter "
+          f"digests equal on the ranks; ms per step by rank "
+          f"{[round(r['step_ms'], 1) for r in ranks]} (one process "
+          f"{one_ms:.1f}); halo bytes sent per step by rank "
+          f"{[r['halo']['bytes'] for r in ranks]} in "
+          f"{ranks[0]['halo']['exchanges']} exchanges; peak GiB by rank "
+          f"{[round(r['peak'], 2) for r in ranks]} (one process "
+          f"{one_peak:.2f}); launches by rank "
+          f"{[r['launches'] for r in ranks]}; ranks {ranks_s:.1f} s, "
+          f"{t_b:.1f} s; phase 14 "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return dict(launches), k3, k4
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -2840,6 +3244,8 @@ def main() -> None:
         torch.cuda.empty_cache()
     variants = phase_bevocc(dev, _build, card)
     nuscenes = phase_nuscenes(dev, _build, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        highres, _, _ = phase_highres(dev, _build, card, tmp)
     for path, counts, needs in (
             ("serving", serving, ("gwc_warp", "dcn_gather",
                                   "lift_splat_fused")),
@@ -2852,7 +3258,9 @@ def main() -> None:
                                               "lift_splat_fused")),
             ("optional branches", optional, ("gwc_warp", "dcn_gather")),
             ("bev_with_cp and DepthNetStereo", variants,
-             ("gwc_warp", "dcn_gather"))):
+             ("gwc_warp", "dcn_gather")),
+            ("highres", highres, ("gwc_warp", "dcn_gather", "conv3d_s1",
+                                  "lift_splat_fused"))):
         for name in needs:
             if counts.get(name, 0) < 1:
                 raise AssertionError(f"{name} never launched in {path}")
@@ -2876,7 +3284,7 @@ def main() -> None:
         k["launches"] = sum(run.get(k["name"], 0)
                             for run in (serving, training, evaluation,
                                         train_cli, data_parallel, optional,
-                                        variants, nuscenes))
+                                        variants, nuscenes, highres))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,9 +29,10 @@ def grid_mask_draws(n: int, generator, device,
     """(apply bool, d, sx, sy int64), each [n], drawn from ``generator``
     (on its device). As ``models.layers.keep_mask``: ``n`` is ``groups``
     blocks of this rank's images, and over W ranks the draw is for the
-    global batch, of which this rank keeps its slice of each block."""
+    global batch, of which this rank keeps its slice of each block (the
+    data group's: the space ranks of one sample keep the same draws)."""
     gen_device = generator.device if generator is not None else device
-    w, r = parallel.world_size(), parallel.rank()
+    w, r = parallel.data_size(), parallel.data_rank()
     per = n // groups
 
     def draw(fn):

@@ -3,7 +3,11 @@
 
 The prediction follows ``simple_test`` (ref: bevdepth_occupancy.py:275-297):
 the head's logits in fp32, upsampled trilinearly (align_corners=False) to
-the ground truth's grid, then argmax, then the metric update.
+the ground truth's grid, then argmax, then the metric update. On a sharded
+grid (``parallel.spatial``) the model gathers the logits on every space
+rank, and only the first space rank of each sample updates the metric
+state, so each frame is scored once when the states are summed over the
+ranks.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from .. import metrics as ssc_metrics
+from .. import parallel
 from ..ops.resize import resize_trilinear
 
 
@@ -35,7 +40,7 @@ def make_eval_step(gt_shape: Tuple[int, int, int] = (256, 256, 32)
         if tuple(logits.shape[1:4]) != target:
             logits = resize_trilinear(logits, target)
         pred = logits.argmax(-1)
-        if "gt_occ" in batch:
+        if "gt_occ" in batch and parallel.space_rank() == 0:
             state = ssc_metrics.update_state(state, pred, batch["gt_occ"])
         return pred, state
 

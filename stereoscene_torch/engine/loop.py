@@ -24,7 +24,9 @@ Data parallel (``parallel``), each rank with its shard of the index:
   once; every rank restores the same step;
 - ``run_evaluation`` scores the rank's shard, then sums the int64 metric
   state over the ranks once (no collective per frame: the shards may
-  differ in length), so every rank returns the same metrics.
+  differ in length), so every rank returns the same metrics. On a sharded
+  grid the space ranks of one sample share its frames, and only the first
+  of them scores and counts them.
 """
 
 from __future__ import annotations
@@ -293,8 +295,10 @@ def run_evaluation(
     t0 = time.time()
     n = 0
     batch_size = getattr(eval_loader, "batch_size", None)
+    scores_frames = parallel.space_rank() == 0
     for i, batch in enumerate(eval_loader):
-        n += int(np.asarray(next(iter(batch.values()))).shape[0])
+        n += scores_frames * int(np.asarray(
+            next(iter(batch.values()))).shape[0])
         if batch_size is not None:
             batch = pad_batch(batch, batch_size)
         _, state = eval_step(model, to_device(batch, device), state,

@@ -32,6 +32,14 @@ is W times its share, the ``all_sum`` backward summing W equal loss
 gradients), which the clip sees, as XLA's all-reduce in the JAX step.
 DDP's module wrapper does not fit: ``torch.autograd.grad`` never fires its
 reducer hooks, and ``bf16_params`` swaps the parameters inside the step.
+
+Spatial sharding (``parallel.spatial``): the logits are this rank's X slab
+and ``compute_losses`` takes the matching slab of the labels; the voxel
+terms pool over every rank, the image-side terms (depth, imgseg) over the
+data group, and ``reduce_gradients``' mean over all ranks is then the
+global gradient (see there). The voxel terms that read the whole grid
+(OHEM's per-sample top-k, Lovasz's global sort, dice, LGA's neighbours)
+are refused on a sharded grid.
 """
 
 from __future__ import annotations
@@ -57,7 +65,7 @@ from ..losses import (
 from ..losses.streaming import streaming_voxel_losses
 from ..models.crp3d import crp_relation_loss
 from ..ops.resize import resize_trilinear
-from ..parallel import all_sum, reduce_gradients
+from ..parallel import all_sum, data_group, reduce_gradients, spatial
 
 
 def step_lr_schedule(
@@ -174,6 +182,19 @@ class LossConfig:
     stream_voxel_chunks: int = 0
 
 
+def check_sharding(cfg: LossConfig) -> None:
+    """Raise, by name, where the grid is sharded and ``cfg`` weights a
+    voxel term that reads the whole grid."""
+    if not spatial.active():
+        return
+    unsharded = [name for name in ("voxel_ohem", "voxel_lovasz",
+                                   "voxel_dice", "voxel_lga")
+                 if getattr(cfg, name) > 0]
+    if unsharded:
+        raise ValueError(f"spatial sharding does not cover the loss terms "
+                         f"{unsharded}; set them to 0 or run unsharded")
+
+
 def compute_losses(outputs: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor],
                    cfg: LossConfig) -> Dict[str, torch.Tensor]:
@@ -186,6 +207,9 @@ def compute_losses(outputs: Dict[str, torch.Tensor],
     class_weights = class_weights_from_frequencies()
     gt = batch["gt_occ"]
     logits = outputs["output_voxels"]
+    if spatial.active():
+        check_sharding(cfg)
+        gt = spatial.shard_voxels(gt, dim=1)
     if cfg.stream_voxel_chunks > 0:
         if any((cfg.voxel_ohem, cfg.voxel_lovasz, cfg.voxel_dice,
                 cfg.voxel_lga)):
@@ -200,7 +224,7 @@ def compute_losses(outputs: Dict[str, torch.Tensor],
                 losses[f"loss_voxel_{name}_0"] = weight * terms[name]
     else:
         if logits.shape[1:4] != gt.shape[1:4]:
-            logits = resize_trilinear(logits.float(), tuple(gt.shape[1:4]))
+            logits = _upsample(logits, tuple(gt.shape[1:4]))
         if cfg.voxel_ce > 0:
             losses["loss_voxel_ce_0"] = cfg.voxel_ce * ce_ssc_loss(
                 logits, gt, class_weights)
@@ -250,6 +274,20 @@ def compute_losses(outputs: Dict[str, torch.Tensor],
     return losses
 
 
+def _upsample(logits, out_xyz):
+    """fp32 ``logits`` [B, X, Y, Z, C] resized trilinearly to ``out_xyz``;
+    on a sharded grid an X slab, resized with one halo plane a side (the
+    edge plane repeated at the grid's ends, as the whole resize clamps)
+    and cropped to its own planes."""
+    logits = logits.float()
+    if not spatial.active():
+        return resize_trilinear(logits, out_xyz)
+    f = out_xyz[0] // logits.shape[1]
+    padded = spatial.halo(logits, 1, 1, dim=1, edge="replicate")
+    out = resize_trilinear(padded, (out_xyz[0] + 2 * f,) + out_xyz[1:])
+    return out[:, f:f + out_xyz[0]]
+
+
 def _imgseg_loss(seg_logits, seg_gt, class_weights):
     """Image-view seg CE (ref :418-430): the left camera's labels
     nearest-downsampled to the feature grid, class-frequency weighted,
@@ -268,7 +306,7 @@ def _imgseg_loss(seg_logits, seg_gt, class_weights):
     w = torch.as_tensor(class_weights, dtype=torch.float32,
                         device=dev)[safe]
     w = torch.where(valid, w, torch.zeros_like(w))
-    num, den = all_sum(torch.stack([(nll * w).sum(), w.sum()]))
+    num, den = all_sum(torch.stack([(nll * w).sum(), w.sum()]), data_group())
     return num / den.clamp_min(1e-12)
 
 

@@ -4,8 +4,10 @@ the sparse LiDAR depth is min-pooled to the feature stride (zero = no
 return), binned into the D depth bins as a one-hot target, and the
 predicted depth distribution takes a binary cross-entropy on the
 foreground pixels, normalised by their count: in a process group
-(``parallel``) the loss sum and the count are pooled over the ranks, so it
-is the global batch's loss.
+(``parallel``) the loss sum and the count are pooled over the data group
+(every rank unsharded; the ranks holding distinct samples on a sharded
+grid, whose space ranks each hold the whole depth map), so it is the
+global batch's loss.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel import all_sum
+from ..parallel import all_sum, data_group
 
 _EPS = 1e-12
 _LOG_CLAMP = -100.0
@@ -50,5 +52,6 @@ def bce_depth_loss(depth_labels: torch.Tensor, depth_probs: torch.Tensor,
     log_p = torch.log(preds.clamp(_EPS, 1.0)).clamp_min(_LOG_CLAMP)
     log_q = torch.log((1.0 - preds).clamp(_EPS, 1.0)).clamp_min(_LOG_CLAMP)
     bce = -(labels * log_p + (1.0 - labels) * log_q)
-    num, den = all_sum(torch.stack([(bce.sum(dim=1) * fg).sum(), fg.sum()]))
+    num, den = all_sum(torch.stack([(bce.sum(dim=1) * fg).sum(), fg.sum()]),
+                       data_group())
     return num / den.clamp_min(1.0)

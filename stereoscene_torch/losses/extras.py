@@ -14,7 +14,8 @@
   ViewTransformerLSSVoxel.py:390-403 get_klv_depth_loss).
 
 Over ranks (``parallel``) every sum over the batch pools through
-``all_sum`` before a division, as in ``losses/semkitti.py``.
+``all_sum`` before a division, as in ``losses/semkitti.py``; the depth
+loss over the data group, as ``losses/depth.py``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from ..parallel import all_sum
+from ..parallel import all_sum, data_group
 
 _EPS = 1e-12
 
@@ -155,5 +156,6 @@ def klv_depth_loss(gt_depths: torch.Tensor, depth_probs: torch.Tensor,
     logp = torch.log(preds + 1e-4)
     per_pix = (target * (torch.log(target.clamp_min(_EPS)) - logp)).sum(1)
     per_pix = torch.where(fg, per_pix, torch.zeros_like(per_pix))
-    num, den = all_sum(torch.stack([per_pix.sum(), fg.float().sum()]))
+    num, den = all_sum(torch.stack([per_pix.sum(), fg.float().sum()]),
+                       data_group())
     return num / den.clamp_min(1.0)

@@ -27,7 +27,12 @@ half-pixel centres an output row's two taps lie within one source row of
 its own, so one halo row suffices for every f.
 
 Over ranks (``parallel``) the six sums pool through ``all_sum`` before the
-losses are formed, so each rank computes the global batch's losses.
+losses are formed, so each rank computes the global batch's losses. On a
+sharded grid (``parallel.spatial``) the logits are this rank's X slab and
+the labels the matching slab; the slab takes one source plane of halo per
+X side from its neighbours (the edge plane repeated at the grid's ends,
+as on Y), is upsampled and cropped to its own planes on X as on Y, and
+the sums pool over every rank of the data and space groups.
 """
 
 from __future__ import annotations
@@ -38,22 +43,24 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel import all_sum
+from ..parallel import all_sum, spatial
 from .semkitti import _EPS, _neg_log
 
 _KEYS = ("ce_num", "ce_den", "nom", "p_sum", "t_sum", "v")
 
 
 def _slab_sums(slab: torch.Tensor, gslab: torch.Tensor, cw: torch.Tensor,
-               factor: int):
-    """The six sums of one padded slab [B, X, S+2, Z, C] against its
-    labels [B, fX, fS, fZ]."""
+               factor: int, x_halo: bool):
+    """The six sums of one padded slab [B, X, S+2, Z, C] (with
+    ``x_halo``, [B, X+2, S+2, Z, C]) against its labels [B, fX, fS, fZ]."""
     b, x, s2, z, c = slab.shape
     vol = slab.float().permute(0, 4, 1, 2, 3)
     if factor > 1:
         vol = F.interpolate(vol, size=(factor * x, factor * s2, factor * z),
                             mode="trilinear", align_corners=False)
     vol = vol[:, :, :, factor:factor * (s2 - 1)]
+    if x_halo:
+        vol = vol[:, :, factor:factor * (x - 1)]
     flat = vol.permute(0, 2, 3, 4, 1).reshape(-1, c)
     t = gslab.reshape(-1).long()
     valid = t != 255
@@ -91,15 +98,18 @@ def streaming_voxel_stats(logits: torch.Tensor, gt: torch.Tensor,
     cw = torch.as_tensor(class_weights, dtype=torch.float32,
                          device=logits.device)
     padded = torch.cat([logits[:, :, :1], logits, logits[:, :, -1:]], dim=2)
+    x_halo = spatial.active()
+    if x_halo:
+        padded = spatial.halo(padded, 1, 1, dim=1, edge="replicate")
     sums = None
     for i in range(num_chunks):
         slab = padded[:, :, i * s:i * s + s + 2]
         gslab = gt[:, :, i * factor * s:(i + 1) * factor * s]
         if torch.is_grad_enabled() and slab.requires_grad:
-            part = checkpoint(_slab_sums, slab, gslab, cw, factor,
+            part = checkpoint(_slab_sums, slab, gslab, cw, factor, x_halo,
                               use_reentrant=False)
         else:
-            part = _slab_sums(slab, gslab, cw, factor)
+            part = _slab_sums(slab, gslab, cw, factor, x_halo)
         sums = part if sums is None else [a + p for a, p in zip(sums, part)]
     flat = all_sum(torch.cat([v.reshape(-1) for v in sums]))
     out = dict(zip(_KEYS, flat.split([1, 1, c, c, c, 1])))

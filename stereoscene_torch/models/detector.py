@@ -29,11 +29,21 @@ Eval mode (the default) is inference, under ``torch.no_grad``; training
 mode (``model.train()``) is the JAX package's ``train=True``: BatchNorm on
 batch statistics, DropPath and dropout, gradients, and the dynamic-rank
 splat unless the batch carries a plan (detector.py:266-288).
+
+Spatial sharding (``parallel.spatial``, the JAX package's
+``voxel_constraint``, detector.py:363-364): over a space group of S > 1
+ranks each rank runs the image side and the splat whole, keeps the X slab
+of its rank from the voxel features, and runs the 3D encoder, its neck
+and the head on the slab. In training the logits stay slabs (the losses
+take the matching slab of the labels, ``engine.train``); in eval they are
+gathered whole on every space rank. CRP3D and the point branch read the
+whole grid and are refused under sharding.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -43,6 +53,7 @@ from .. import geometry
 from ..data.augment import grid_mask
 from ..ops.resize import resize_trilinear
 from ..ops.splat_plan import SplatPlanCache
+from ..parallel import spatial
 from .depth_net import BasicBlock2d
 from .efficientnet import CustomEfficientNet
 from .layers import checkpoint_region, remat
@@ -175,6 +186,7 @@ class BEVDepthOccupancy(nn.Module):
             with_cp=cfg.bev_with_cp)
         strides = tuple(cfg.voxel_strides) + (2,) * (
             len(cfg.voxel_channels) - len(cfg.voxel_strides))
+        self.voxel_total_stride = math.prod(strides)
         self.img_bev_encoder_backbone = CustomResNet3D(
             cfg.numC_Trans, cfg.voxel_channels, strides,
             depth=cfg.resnet_depth, norm_groups=cfg.norm_groups,
@@ -261,6 +273,20 @@ class BEVDepthOccupancy(nn.Module):
         return checkpoint_region(vt, vt, *args, None,
                                  vt.depth_net.aspp_mask(feat_left, generator))
 
+    def check_sharding(self) -> None:
+        """Raise, by name, where this model cannot run on the space group's
+        layout: a grid X that does not divide into slabs at every stride
+        of the 3D encoder, or a branch that reads the whole grid."""
+        if not spatial.active():
+            return
+        spatial.check_grid(self.cfg.grid_shape[0], self.voxel_total_stride)
+        for on, name in ((self.cfg.crp3d, "crp3d (CRP3D)"),
+                         (self.cfg.supervise_points,
+                          "supervise_points (the point branch)")):
+            if on:
+                raise ValueError(f"spatial sharding does not cover {name}; "
+                                 f"turn it off or run unsharded")
+
     # ---- stage 3: 3D encoder + head ----
     def bev_encode(self, voxel_feat):
         """[B, C, X, Y, Z] -> logits [B, classes, X, Y, Z]."""
@@ -302,7 +328,8 @@ class BEVDepthOccupancy(nn.Module):
           bda [B, 3, 3]; calib [B] (fx * baseline); optionally the plan
           (splat_order / splat_ranks / splat_bounds), and for the point
           branch points_occ [B, P, 4] and points_uv [B, P, 3].
-        Returns output_voxels [B, X, Y, Z, classes], depth_prob
+        Returns output_voxels [B, X, Y, Z, classes] (in training on a
+        sharded grid, this rank's slab [B, X / S, Y, Z, classes]), depth_prob
         [B, D, fH, fW], and where their switches are on output_points
         [B, P, classes] (for a batch with points_occ), imgseg_logits
         [B, fH, fW, imgseg_class] and crp_logits [B, 4, V, M]. (The JAX
@@ -330,6 +357,9 @@ class BEVDepthOccupancy(nn.Module):
             imgseg_logits = self.imgseg_head(seg).permute(0, 2, 3, 1)
         voxel_feat, depth_prob = self.view_transform(
             feat_left, feat_right, batch, use_kernel, generator)
+        if spatial.active():
+            self.check_sharding()
+            voxel_feat = spatial.shard_voxels(voxel_feat)
         points = points_uv = None
         if self.cfg.supervise_points and "points_occ" in batch:
             points = self._normalized_points(batch)
@@ -337,7 +367,10 @@ class BEVDepthOccupancy(nn.Module):
                 points_uv = batch["points_uv"][..., :2]
         logits, output_points, crp_logits = self.bev_outputs(
             voxel_feat, points, feat_left, points_uv)
-        out = {"output_voxels": logits.permute(0, 2, 3, 4, 1),
+        logits = logits.permute(0, 2, 3, 4, 1)
+        if not self.training:
+            logits = spatial.gather_slabs(logits, dim=1)
+        out = {"output_voxels": logits,
                "depth_prob": depth_prob,
                "output_points": output_points,
                "imgseg_logits": imgseg_logits,

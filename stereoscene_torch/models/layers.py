@@ -16,7 +16,14 @@ its ``dropout`` rng stream, which gives other bits from the same seed.
 
 Data parallelism (``parallel``): in training, BatchNorm takes the global
 batch's statistics and ``keep_mask`` draws for the global batch, as the
-JAX package's one step over the sharded global batch does.
+JAX package's one step over the sharded global batch does. Both follow
+the data group (``parallel.data_rank``): the S space ranks of one sample
+draw the same masks and pool the same statistics.
+
+Spatial sharding (``parallel.spatial``): ``Conv3d`` and ``GroupNorm`` built
+with ``sharded=True`` work on an X slab of the voxel grid where the space
+group has more than one rank; ``Conv3d`` exchanges the halo planes its
+stencil reads and ``GroupNorm`` pools its statistics over the space group.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import parallel
 from ..ops.conv3d import KERNEL_CIN, conv3d_s1
+from ..parallel import spatial
 
 
 def ConvTransposeTorch(cin: int, cout: int, kernel_size: int, ndim: int,
@@ -50,9 +58,11 @@ def keep_mask(shape, keep: float, generator, device,
     backbone stacks the left eyes, then the right ones). Over W ranks the
     draw is for the global batch, each block W times as long, and this
     rank keeps its slice of each block: W ranks that share the generator's
-    seed then draw what one process draws at W times the batch."""
+    seed then draw what one process draws at W times the batch. W and the
+    slice are the data group's (``parallel.data_size``, ``data_rank``), so
+    the space ranks of one sample keep the same rows."""
     gen_device = generator.device if generator is not None else device
-    w, r = parallel.world_size(), parallel.rank()
+    w, r = parallel.data_size(), parallel.data_rank()
     n = shape[0] // groups
     draw = torch.rand((groups, w * n) + tuple(shape[1:]),
                       generator=generator, device=gen_device)
@@ -88,12 +98,32 @@ class GroupNorm(nn.GroupNorm):
     The statistics come from ``torch.var_mean`` over each (sample, group)
     row rather than ``F.group_norm``: on CUDA the latter reduces each row in
     one thread block, so the GN(2) layers of the cost-volume hourglasses
-    (2 rows of 13.7M elements at the flagship) ran on 2 of the card's SMs."""
+    (2 rows of 13.7M elements at the flagship) ran on 2 of the card's SMs.
+
+    Built with ``sharded=True`` (a norm of the voxel grid) and run on an X
+    slab of a sharded grid, it pools each row over the space group in two
+    passes, (count, sum) for the mean and then the centred sum of squares,
+    as ``BatchNorm`` pools over the data group."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
+                 sharded: bool = False):
+        super().__init__(num_groups, num_channels, eps=eps)
+        self.sharded = sharded
 
     def forward(self, x):
         b, c = x.shape[:2]
         rows = x.float().reshape(b, self.num_groups, -1)
-        var, mean = torch.var_mean(rows, dim=-1, correction=0, keepdim=True)
+        if self.sharded and spatial.active():
+            group = parallel.space_group()
+            sums = parallel.all_sum(torch.cat([
+                rows.sum(-1).reshape(-1),
+                rows.new_full((1,), rows.shape[-1])]), group)
+            mean = (sums[:-1] / sums[-1]).reshape(b, self.num_groups, 1)
+            var = parallel.all_sum((rows - mean).square().sum(-1), group)
+            var = (var / sums[-1]).reshape(b, self.num_groups, 1)
+        else:
+            var, mean = torch.var_mean(rows, dim=-1, correction=0,
+                                       keepdim=True)
         y = ((rows - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         affine = (1, c) + (1,) * (x.dim() - 2)
         return (y * self.weight.float().reshape(affine)
@@ -112,12 +142,15 @@ class BatchNorm(nn.BatchNorm2d):
     (set by ``checkpoint_region``) leaves them alone: the recompute of a
     checkpointed block must not update them a second time.
 
-    In a process group the batch is the global one, every rank's: the
-    statistics are pooled by ``parallel.all_sum`` in two passes, (count,
-    sum) for the mean, then the centred sum of squares, never as E[x^2] -
-    E[x]^2. Every rank then normalises with, and updates its running
-    statistics to, the same values. A checkpointed block's recompute pools
-    again, on every rank in the same order."""
+    Over a data group of more than one rank the batch is the global one,
+    every rank's: the statistics are pooled by ``parallel.all_sum`` over
+    the data group in two passes, (count, sum) for the mean, then the
+    centred sum of squares, never as E[x^2] - E[x]^2. Every rank then
+    normalises with, and updates its running statistics to, the same
+    values. A checkpointed block's recompute pools again, on every rank in
+    the same order. A data group of one rank (one process, or one sample
+    sharded over a space group) takes ``torch.var_mean``, as one process
+    does."""
 
     stats_frozen = False
 
@@ -130,13 +163,16 @@ class BatchNorm(nn.BatchNorm2d):
                 self.eps).to(x.dtype)
         dims = [0] + list(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        if parallel.initialized():
+        if parallel.data_size() > 1:
+            group = parallel.data_group()
             count = xf.numel() // xf.shape[1]
             sums = parallel.all_sum(torch.cat([xf.sum(dims),
-                                               xf.new_full((1,), count)]))
+                                               xf.new_full((1,), count)]),
+                                    group)
             mean = sums[:-1] / sums[-1]
             var = parallel.all_sum(
-                (xf - mean.reshape(shape)).square().sum(dims)) / sums[-1]
+                (xf - mean.reshape(shape)).square().sum(dims),
+                group) / sums[-1]
         else:
             var, mean = torch.var_mean(xf, dim=dims, correction=0)
         if not self.stats_frozen:
@@ -188,10 +224,20 @@ class Conv3d(nn.Conv3d):
     Ci in {64, 128}, Co >= 64, a 5-D input, and built with
     ``kernel=True`` (the port's ``STEREOSCENE_PALLAS_CONV3D=1``). Any other
     conv is ``F.conv3d``. The bias is added outside the kernel, as the JAX
-    package's ``_PallasConv3d`` does."""
+    package's ``_PallasConv3d`` does.
+
+    Built with ``sharded=True`` (a conv of the voxel grid) and run on an X
+    slab of a sharded grid (``parallel.spatial``), a conv whose X extent is
+    more than one voxel reads its neighbours' planes: 3 wide, stride 1,
+    padding 1 takes one halo plane a side, runs as unsharded (K4 where its
+    gate holds) and drops its first and last output planes; 3 wide, stride
+    2, padding 1 takes the lower neighbour's last plane and runs with X
+    padding 0 (a slab of even size starting at an even X needs nothing of
+    the upper one). Any other conv wider than 1 in X is refused."""
 
     def __init__(self, cin: int, cout: int, kernel_size, stride=1,
-                 padding=0, bias: bool = True, kernel: bool = False):
+                 padding=0, bias: bool = True, kernel: bool = False,
+                 sharded: bool = False):
         super().__init__(cin, cout, kernel_size, stride=stride,
                          padding=padding, bias=bias)
         self.k4 = kernel and (
@@ -199,14 +245,31 @@ class Conv3d(nn.Conv3d):
             and self.padding == (1, 1, 1) and self.dilation == (1, 1, 1)
             and self.groups == 1 and self.padding_mode == "zeros"
             and cin in KERNEL_CIN and cout >= 64)
+        self.sharded = sharded
 
-    def forward(self, x):
+    def _conv(self, x):
         if not (self.k4 and x.dim() == 5):
             return super().forward(x)
         y = conv3d_s1(x, self.weight)
         if self.bias is None:
             return y
         return y + self.bias.to(y.dtype).reshape(1, -1, 1, 1, 1)
+
+    def forward(self, x):
+        if not (self.sharded and self.kernel_size[0] > 1
+                and spatial.active()):
+            return self._conv(x)
+        shape = (self.kernel_size[0], self.stride[0], self.padding[0],
+                 self.dilation[0])
+        if shape == (3, 1, 1, 1):
+            return self._conv(spatial.halo(x, 1, 1))[:, :, 1:-1]
+        if shape == (3, 2, 1, 1):
+            return F.conv3d(spatial.halo(x, 1, 0), self.weight, self.bias,
+                            self.stride, (0,) + self.padding[1:],
+                            self.dilation, self.groups)
+        raise ValueError(
+            f"spatial sharding: no halo rule for a conv of X kernel, "
+            f"stride, padding, dilation {shape}")
 
 
 def ConvGN3d(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,

@@ -2,7 +2,9 @@
 (ref: occupancy/dense_heads/occhead.py:28-426).
 
 Voxel branch (ref :96-108): Conv3d(in -> in/2, 3x3x3) -> GN -> ReLU ->
-Conv3d(in/2 -> classes, 1x1x1).
+Conv3d(in/2 -> classes, 1x1x1); on an X slab of a sharded grid
+(``parallel.spatial``) the 3x3x3 conv exchanges halos and the norm pools
+over the space group.
 
 Point branch (``supervise_points``, off in the scored config
 stereoscene.py:111; ref :171-218): the voxel features sampled
@@ -22,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import GroupNorm, Mlp
+from .layers import Conv3d, GroupNorm, Mlp
 
 
 def trilinear_point_sample(vol: torch.Tensor,
@@ -86,8 +88,9 @@ class OccHead(nn.Module):
         super().__init__()
         mid = in_channels // 2
         self.occ_convs = nn.ModuleList([nn.Sequential(
-            nn.Conv3d(in_channels, mid, 3, padding=1, bias=False),
-            GroupNorm(norm_groups, mid), nn.ReLU(),
+            Conv3d(in_channels, mid, 3, padding=1, bias=False,
+                   sharded=True),
+            GroupNorm(norm_groups, mid, sharded=True), nn.ReLU(),
             nn.Conv3d(mid, out_channel, 1, bias=False))])
         self.supervise_points = supervise_points
         self.sampling_img_feats = sampling_img_feats

@@ -5,6 +5,10 @@ then residual BasicBlock stages (depth 10 or 18) with GroupNorm. With
 (``models/crp3d.py``) hooks in after stage ``crp_level``, as the JAX
 package's (resnet3d.py:83-119), and the forward also returns its relation
 logits.
+
+Its convs and norms are the voxel grid's (``sharded=True``): on an X slab
+of a sharded grid (``parallel.spatial``) they exchange halos and pool
+their statistics over the space group.
 """
 
 from __future__ import annotations
@@ -16,21 +20,24 @@ import torch.nn.functional as F
 
 from .layers import Conv3d, GroupNorm
 
+# blocks a stage by depth (the reference's BasicBlock depths 10 and 18)
+STAGE_BLOCKS = {10: 1, 18: 2}
+
 
 class BasicBlock3d(nn.Module):
     def __init__(self, cin, planes, stride=1, gn_groups=32,
                  conv3d_kernel=False):
         super().__init__()
-        k = dict(bias=False, kernel=conv3d_kernel)
+        k = dict(bias=False, kernel=conv3d_kernel, sharded=True)
         self.conv1 = Conv3d(cin, planes, 3, stride=stride, padding=1, **k)
-        self.bn1 = GroupNorm(gn_groups, planes)
+        self.bn1 = GroupNorm(gn_groups, planes, sharded=True)
         self.conv2 = Conv3d(planes, planes, 3, padding=1, **k)
-        self.bn2 = GroupNorm(gn_groups, planes)
+        self.bn2 = GroupNorm(gn_groups, planes, sharded=True)
         self.downsample = None
         if stride != 1 or cin != planes:
             self.downsample = nn.Sequential(
                 Conv3d(cin, planes, 1, stride=stride, **k),
-                GroupNorm(gn_groups, planes))
+                GroupNorm(gn_groups, planes, sharded=True))
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -47,10 +54,14 @@ class CustomResNet3D(nn.Module):
                  crp_mega_shape: Tuple[int, int, int] = (32, 32, 4)):
         super().__init__()
         self.crp_level = crp_level if crp3d else None
-        blocks = {10: 1, 18: 2}[depth]
+        if depth not in STAGE_BLOCKS:
+            raise ValueError(f"CustomResNet3D depth {depth} is not built "
+                             f"(depths {sorted(STAGE_BLOCKS)})")
+        blocks = STAGE_BLOCKS[depth]
         self.input_proj = nn.Sequential(
             nn.Conv3d(in_channels, block_inplanes[0], 1, bias=False),
-            GroupNorm(norm_groups, block_inplanes[0]), nn.ReLU())
+            GroupNorm(norm_groups, block_inplanes[0], sharded=True),
+            nn.ReLU())
         layers = []
         cin = block_inplanes[0]
         for planes, stride in zip(block_inplanes, block_strides):

@@ -4,7 +4,10 @@
   stride) or a transposed conv (integer stride), BN(eps 1e-3) + ReLU, then
   channel concat. Keys ``deblocks.i.{0,1}``.
 - ``SECONDFPN3D`` (voxel neck, ref second_fpn_3d.py:13-117): per level a
-  k = s transposed conv3d + GroupNorm + ReLU, then concat.
+  k = s transposed conv3d + GroupNorm + ReLU, then concat. On an X slab of
+  a sharded grid (``parallel.spatial``) the transposed convs are
+  slab-local (each output plane reads one input plane) and the norms pool
+  over the space group.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ class SECONDFPN3D(nn.Module):
         self.deblocks = nn.ModuleList(
             nn.Sequential(
                 ConvTransposeTorch(cin, cout, int(s), ndim=3, stride=int(s)),
-                GroupNorm(norm_groups, cout), nn.ReLU())
+                GroupNorm(norm_groups, cout, sharded=True), nn.ReLU())
             for cin, cout, s in zip(in_channels, out_channels,
                                     upsample_strides))
 

@@ -19,6 +19,17 @@ hand:
 
 Every rank holds the same batch size. Without an initialised group every
 helper is the single-process identity, so one process runs as before.
+
+Spatial sharding (``init_space``, the JAX package's ``('data', 'space')``
+mesh, ``make_mesh``'s reshape of the devices to (n // space, space)): rank
+r sits at (d, s) = (r // S, r % S) of W = D * S ranks. The S ranks of a
+data index d (its space group) hold one sample and each an X slab of its
+voxel grid (``parallel.spatial``); the D ranks of a space index s (its
+data group) hold the D samples of the global batch. ``data_rank`` and
+``data_size`` say which sample rows a rank holds: the index shard, the
+random masks and the BatchNorm statistics follow them. Without
+``init_space`` (or with S = 1) the data group is the whole group and the
+space group is the rank alone.
 """
 
 from __future__ import annotations
@@ -79,9 +90,85 @@ def is_primary() -> bool:
 
 
 def shutdown() -> None:
-    """Leave the process group, where one was joined."""
+    """Leave the process group, where one was joined, and forget its
+    (data, space) layout."""
+    global _LAYOUT
+    _LAYOUT = None
     if initialized():
         dist.destroy_process_group()
+
+
+class _Layout:
+    """The (data, space) layout of the group: ``space`` ranks a sample,
+    this rank's data and space groups."""
+
+    def __init__(self, space: int, data_group, space_group):
+        self.space = space
+        self.data_group = data_group
+        self.space_group = space_group
+
+
+_LAYOUT = None
+
+
+def init_space(space: int) -> None:
+    """Lay the joined group's W ranks out as (W // ``space``, ``space``):
+    builds every data and space group (``dist.new_group`` on every rank,
+    in the same order) and keeps this rank's. Raises where ``space`` does
+    not divide W. ``space`` 1 keeps the plain data-parallel layout."""
+    global _LAYOUT
+    w = world_size()
+    if space < 1 or w % space:
+        raise ValueError(f"spatial shards {space} do not divide the "
+                         f"{w} ranks of the group")
+    if space == 1:
+        _LAYOUT = None
+        return
+    n_data = w // space
+    data_groups = [dist.new_group([d * space + s for d in range(n_data)])
+                   for s in range(space)]
+    space_groups = [dist.new_group([d * space + s for s in range(space)])
+                    for d in range(n_data)]
+    r = rank()
+    _LAYOUT = _Layout(space, data_groups[r % space],
+                      space_groups[r // space])
+
+
+def space_size() -> int:
+    """S, the ranks that share one sample's voxel grid (1 unsharded)."""
+    return _LAYOUT.space if _LAYOUT is not None else 1
+
+
+def space_rank() -> int:
+    """This rank's slab index s in its space group."""
+    return rank() % space_size()
+
+
+def data_size() -> int:
+    """D = W // S, the ranks that hold distinct samples."""
+    return world_size() // space_size()
+
+
+def data_rank() -> int:
+    """This rank's sample index d = r // S in the global batch."""
+    return rank() // space_size()
+
+
+def data_group():
+    """This rank's data group (None: the whole group)."""
+    return _LAYOUT.data_group if _LAYOUT is not None else None
+
+
+def space_group():
+    """This rank's space group (None where unsharded)."""
+    return _LAYOUT.space_group if _LAYOUT is not None else None
+
+
+def group_ranks(group) -> List[int]:
+    """The global ranks of ``group`` in its rank order (None: all)."""
+    if group is None:
+        return list(range(world_size()))
+    return dist.get_process_group_ranks(group)
 
 
 def barrier() -> None:
@@ -111,27 +198,28 @@ def reduce_ints(values: Sequence[int], op: str = "sum") -> List[int]:
 
 
 class _AllSum(torch.autograd.Function):
-    """Forward: the sum over the ranks. Backward: the sum over the ranks of
-    the incoming gradients, since every rank's copy of the sum feeds its
-    own part of the loss."""
+    """Forward: the sum over the ranks of ``group``. Backward: the sum over
+    them of the incoming gradients, since every rank's copy of the sum
+    feeds its own part of the loss."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks, differentiably; ``t`` itself without a
-    group."""
-    return _AllSum.apply(t) if initialized() else t
+def all_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (None: every rank),
+    differentiably; ``t`` itself without a process group."""
+    return _AllSum.apply(t, group) if initialized() else t
 
 
 class _AllGather(torch.autograd.Function):
@@ -192,7 +280,15 @@ def sum_tensors(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 def reduce_gradients(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """The mean over the ranks of each gradient, all-reduced through one
     flat buffer per dtype; ``grads`` unchanged without a group. Every rank
-    gets the same bits, so parameters stay equal across ranks."""
+    gets the same bits, so parameters stay equal across ranks.
+
+    The mean over all W ranks is also the spatially sharded step's
+    reduction: every rank's objective is the global loss and every
+    collective's backward is its forward's transpose, so the ranks'
+    gradients sum to W times the global loss's gradient. A space rank's
+    share of an image-side parameter's gradient is what reaches its slab
+    (``spatial.shard_voxels``) plus its copy of the image-side terms;
+    a voxel-side one's is its slab's."""
     if not initialized():
         return list(grads)
     w = world_size()

@@ -13,10 +13,11 @@ frame's prediction: SemanticKITTI benchmark ``.label`` files (argmax ->
         [--coordinator HOST:PORT --num-processes W --process-id I]
 
 ``--checkpoint`` takes a checkpoint in the reference's key layout (the
-``state_dict`` entry of a training checkpoint, or the bare dict) and loads
-it strictly, or the train CLI's ``WORK_DIR/ckpts`` directory, whose latest
-step it loads; without one the weights are the model's seeded initial
-ones.
+``state_dict`` entry of a training checkpoint, or the bare dict): the
+port's own, a reference ``.pth``, or one saved after the reference's
+``fuse_conv_bn`` (``utils.convert_reference``), loaded strictly; or the
+train CLI's ``WORK_DIR/ckpts`` directory, whose latest step it loads;
+without one the weights are the model's seeded initial ones.
 Eval runs in fp32, on the card unless ``--device cpu``.
 
 ``--flops`` prints the parameter count and the aten FLOPs of one eval
@@ -56,6 +57,7 @@ from ..engine.eval import make_eval_step
 from ..engine.loop import pad_batch, run_evaluation, to_device
 from ..metrics import empty_state
 from ..models.detector import BEVDepthOccupancy, DetectorConfig
+from ..utils.convert_reference import load_reference
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -90,13 +92,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def load_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Load a reference-layout checkpoint strictly (missing or unexpected
-    keys raise)."""
+def read_state_dict(path: str, prefix: str = "") -> dict:
+    """The ``state_dict`` of the checkpoint at ``path`` (its ``state_dict``
+    entry, or the file's bare dict), ``prefix`` stripped from the keys
+    that start with it. Read with ``weights_only``: tensors, containers
+    and plain values only."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
-    model.load_state_dict(ckpt, strict=True)
+    return {(k[len(prefix):] if prefix and k.startswith(prefix) else k): v
+            for k, v in ckpt.items()}
+
+
+def load_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Load a reference-layout checkpoint strictly: the port's own, a
+    reference one, or a fused one (``utils.convert_reference``; missing,
+    unexpected or misshapen keys raise)."""
+    load_reference(model, read_state_dict(path), strict=True)
 
 
 def write_prediction(pred: np.ndarray, frame: FrameInfo,

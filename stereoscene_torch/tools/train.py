@@ -13,7 +13,8 @@ under ``WORK_DIR/ckpts``, a save on SIGTERM, and a resume from
         [--cfg-options key.path=value ...] [--seed 0] [--bf16] \\
         [--max-epochs N] [--batch-size B] [--save-interval-steps N] \\
         [--deterministic-data] [--profile] [--trace-dir DIR] [--device cuda] \\
-        [--coordinator HOST:PORT --num-processes W --process-id I]
+        [--coordinator HOST:PORT --num-processes W --process-id I] \\
+        [--spatial-shards S]
 
 Training runs on the card unless ``--device cpu``. ``--resume-from`` is
 parsed and, as in the JAX CLI, not read.
@@ -26,8 +27,18 @@ the index, ``frames[I::W]``, at ``--batch-size`` (by default the config's
 ``samples_per_gpu``) per rank, so the global batch is W times that; the
 step computes the global batch's losses, BatchNorm statistics, masks and
 gradient (``parallel``), and rank 0 writes the log and the checkpoints.
-The JAX CLI's ``--spatial-shards`` (the voxel grid sharded over a
-``space`` axis, whose halo exchanges GSPMD writes there) is not ported.
+
+Spatial sharding (the JAX CLI's ``--spatial-shards S``): the W ranks are
+laid out as W // S data indices of S space ranks each
+(``parallel.init_space``). The S ranks of a data index load the same
+frames, ``frames[d::W // S]`` for data index d, at ``--batch-size`` (by
+default ``samples_per_gpu``) per data index, and each runs the 3D encoder,
+its neck, the head and the voxel losses on its X slab of the grid
+(``parallel.spatial``), so a step equals one process at the global batch.
+The train-time eval runs in the same layout, each frame scored once. S
+must divide W, and the grid's X must divide into S slabs at every stride
+of the 3D encoder; CRP3D, the point branch and the OHEM, Lovasz, dice and
+LGA voxel terms read the whole grid and are refused.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from ..engine.eval import make_eval_step
 from ..engine.loop import run_evaluation, run_training
 from ..engine.train import (
     LossConfig,
+    check_sharding,
     create_train_state,
     efficientnet_frozen_predicate,
     make_train_step,
@@ -90,6 +102,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "training over --num-processes processes)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--spatial-shards", type=int, default=1,
+                   help="shard the voxel grid's X axis over this many ranks "
+                        "a sample (the number of ranks must be divisible "
+                        "by it)")
     return p.parse_args(argv)
 
 
@@ -109,6 +125,25 @@ def main(argv: Optional[Sequence[str]] = None, hooks=None):
         parallel.shutdown()
 
 
+def loss_config(cfg, det_cfg: DetectorConfig) -> LossConfig:
+    """The train step's loss weights from a config's
+    ``semkitti_loss_weight_cfg`` and depth loss weight, as the JAX CLI
+    reads them."""
+    loss_w = cfg["model"]["pts_bbox_head"]["semkitti_loss_weight_cfg"]
+    return LossConfig(
+        voxel_ce=loss_w.get("voxel_ce", 1.0),
+        voxel_sem_scal=loss_w.get("voxel_sem_scal", 1.0),
+        voxel_geo_scal=loss_w.get("voxel_geo_scal", 1.0),
+        voxel_ohem=loss_w.get("voxel_ohem", 0.0),
+        voxel_lovasz=loss_w.get("voxel_lovasz", 0.0),
+        stream_voxel_chunks=loss_w.get("stream_voxel_chunks", 0),
+        loss_depth_weight=cfg["model"]["img_view_transformer"].get(
+            "loss_depth_weight", 1.0),
+        downsample=det_cfg.downsample,
+        dbound=det_cfg.dbound,
+    )
+
+
 def _train(args: argparse.Namespace, device: torch.device, hooks):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
@@ -119,8 +154,12 @@ def _train(args: argparse.Namespace, device: torch.device, hooks):
 
     det_cfg = DetectorConfig.from_config(cfg)
     occ_size = tuple(cfg["occ_size"])
+    loss_cfg = loss_config(cfg, det_cfg)
+    parallel.init_space(args.spatial_shards)
     torch.manual_seed(args.seed)
     model = BEVDepthOccupancy(det_cfg, device=device, label_shape=occ_size)
+    model.check_sharding()
+    check_sharding(loss_cfg)
 
     data_cfg = cfg["data"]
     dcfg = cfg["data_config"]
@@ -148,7 +187,7 @@ def _train(args: argparse.Namespace, device: torch.device, hooks):
             " — run python -m stereoscene_torch.tools.preprocess_kitti first")
     batch_size = args.batch_size or data_cfg["samples_per_gpu"]
     train_loader = BatchLoader(
-        train_index.shard(parallel.rank(), parallel.world_size()),
+        train_index.shard(parallel.data_rank(), parallel.data_size()),
         SemanticKittiPipeline(pipe_cfg, seed=args.seed),
         batch_size=batch_size,
         shuffle=not args.deterministic_data,
@@ -171,26 +210,13 @@ def _train(args: argparse.Namespace, device: torch.device, hooks):
         device=device,
     )
 
-    loss_w = cfg["model"]["pts_bbox_head"]["semkitti_loss_weight_cfg"]
-    loss_cfg = LossConfig(
-        voxel_ce=loss_w.get("voxel_ce", 1.0),
-        voxel_sem_scal=loss_w.get("voxel_sem_scal", 1.0),
-        voxel_geo_scal=loss_w.get("voxel_geo_scal", 1.0),
-        voxel_ohem=loss_w.get("voxel_ohem", 0.0),
-        voxel_lovasz=loss_w.get("voxel_lovasz", 0.0),
-        stream_voxel_chunks=loss_w.get("stream_voxel_chunks", 0),
-        loss_depth_weight=cfg["model"]["img_view_transformer"].get(
-            "loss_depth_weight", 1.0),
-        downsample=det_cfg.downsample,
-        dbound=det_cfg.dbound,
-    )
     train_step = make_train_step(loss_cfg, bf16=args.bf16)
 
     def eval_fn(state):
         """The aug-free val split in fp32 with the model in eval mode, so
         each batch goes through the static splat plan of its calibration;
-        each rank scores its shard (``run_evaluation`` sums the metric
-        states)."""
+        each data index scores its shard (``run_evaluation`` sums the
+        metric states; on a sharded grid the first space rank scores)."""
         eval_pipe = PipelineConfig(
             input_size=pipe_cfg.input_size, is_train=False,
             point_cloud_range=pipe_cfg.point_cloud_range)
@@ -199,7 +225,7 @@ def _train(args: argparse.Namespace, device: torch.device, hooks):
             ann_file=data_cfg["val"]["ann_file"],
             split="val")
         eval_loader = BatchLoader(
-            eval_index.shard(parallel.rank(), parallel.world_size()),
+            eval_index.shard(parallel.data_rank(), parallel.data_size()),
             SemanticKittiPipeline(eval_pipe),
             batch_size=max(1, batch_size // 2), shuffle=False,
             drop_last=False)

@@ -13,6 +13,7 @@ hang fails one test.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import multiprocessing
 import os
 import time
@@ -361,3 +362,136 @@ def ddp_case(rank, world, url, cfg, weights, batch, inputs, aspp_mask,
                                  loss_kw, 2, aspp_mask),
             "modules": module_grads(rank, world, url, cfg, weights, inputs,
                                     aspp_mask)}
+
+
+def spatial_case(rank, world, url, space, cfg, weights, batch, loss_kw,
+                 steps=1):
+    """tests/test_torch_spatial.py's run on rank ``rank`` of a (world //
+    ``space``, ``space``) layout (``parallel.init_space``), or in one
+    process when ``url`` is None: the port's model (``cfg``, ``weights``)
+    on this rank's data index's rows of the numpy ``batch``. Returns the
+    eval forward's logits (gathered whole on every space rank), each train
+    step's loss terms, the gradients that step 1 applied (after the
+    reduction over ranks), and the parameters and buffers at the end."""
+    from stereoscene_torch.engine import train
+    from stereoscene_torch.engine.loop import step_generator
+    from stereoscene_torch.models.detector import BEVDepthOccupancy
+
+    if url is not None:
+        parallel.init_space(space)
+    b = next(iter(batch.values())).shape[0] // parallel.data_size()
+    rows = _rows(batch, parallel.data_rank(), b)
+    model = BEVDepthOccupancy(cfg, device="cpu")
+    model.load_state_dict(weights)
+    logits = model({k: v for k, v in rows.items()
+                    if not k.startswith("gt_")})["output_voxels"]
+    state = train.create_train_state(model, device="cpu")
+    applied = []
+    apply = train.apply_gradients
+
+    def record(state, grads):
+        applied.append([g.clone() for g in grads])
+        apply(state, grads)
+
+    step = train.make_train_step(train.LossConfig(**loss_kw))
+    logs = []
+    with _patched(train, "apply_gradients", record):
+        for _ in range(steps):
+            _, out = step(state, rows, step_generator(0, state.step, "cpu"))
+            logs.append({k: float(v) for k, v in out.items()})
+    return {"logits": logits, "logs": logs,
+            "grads": dict(zip([n for n, _ in state.trainable], applied[0])),
+            "state": {k: v.clone() for k, v in model.state_dict().items()}}
+
+
+def spatial_units(rank, world, url, data, model_args):
+    """The spatial-sharding building blocks on this rank of a (1, 2)
+    layout, each on its X slab (dim 2) of the global numpy inputs in
+    ``data`` (tests/test_torch_spatial.py ``_unit_data``); with ``url``
+    None, in one process on the whole tensors. Gradients of parameters are
+    summed over the ranks (``sum_tensors``), those of the input are the
+    slab's. Also the refusals, by message, and ``spatial_case`` on
+    ``model_args``."""
+    from stereoscene_torch.engine.train import LossConfig, compute_losses
+    from stereoscene_torch.models import layers
+    from stereoscene_torch.models.detector import (
+        BEVDepthOccupancy,
+        DetectorConfig,
+    )
+    from stereoscene_torch.parallel import spatial
+
+    if url is not None:
+        parallel.init_space(world)
+
+    def t(key):
+        return spatial.shard_voxels(torch.from_numpy(data[key]))
+
+    def run(module, x, cot, params=None):
+        params = list(module.parameters()) if params is None else params
+        x = x.clone().requires_grad_()
+        y = module(x)
+        grads = torch.autograd.grad((y * cot).sum(), [x] + params)
+        return dict(y=y.detach(), gx=grads[0],
+                    gp=parallel.sum_tensors(list(grads[1:])))
+
+    out = {}
+    torch.manual_seed(0)
+    convs = {
+        "s1": layers.Conv3d(8, 6, 3, padding=1, sharded=True),
+        "s2": layers.Conv3d(8, 6, 3, stride=2, padding=1, bias=False,
+                            sharded=True),
+        "k4": layers.Conv3d(64, 64, 3, padding=1, bias=False, kernel=True,
+                            sharded=True),
+    }
+    for name, conv in convs.items():
+        conv.load_state_dict({k: torch.from_numpy(v) for k, v in
+                              data[f"{name}_w"].items()})
+        out[name] = run(conv, t(f"{name}_x"), t(f"{name}_cot"))
+    out["k4_gate"] = convs["k4"].k4
+    gn = layers.GroupNorm(2, 8, sharded=True)
+    gn.load_state_dict({k: torch.from_numpy(v)
+                        for k, v in data["gn_w"].items()})
+    out["gn"] = run(gn, t("s1_x"), t("gn_cot"))
+    # rep_cot [S, ...] holds one cotangent a slab with its two halo planes
+    rep_cot = torch.from_numpy(data["rep_cot"])
+    if url is not None:
+        out["replicate"] = run(
+            lambda x: spatial.halo(x, 1, 1, edge="replicate"), t("s1_x"),
+            rep_cot[rank], [])
+    else:  # each slab's window of the whole tensor, edge planes repeated
+        n = data["s1_x"].shape[2] // rep_cot.shape[0]
+
+        def windows(x):
+            padded = torch.cat([x[:, :, :1], x, x[:, :, -1:]], 2)
+            return torch.stack([padded[:, :, r * n:r * n + n + 2]
+                                for r in range(rep_cot.shape[0])])
+
+        out["replicate"] = run(windows, t("s1_x"), rep_cot, [])
+    if url is not None:  # the all_reduce route of gloo with CUDA tensors
+        with _patched(spatial, "_p2p", lambda _: False):
+            out["s1_reduce"] = run(convs["s1"], t("s1_x"), t("s1_cot"))
+        out["gathered"] = spatial.gather_slabs(t("s1_x"))
+        refusals = {}
+        base = model_args[0]
+        for name, kw in (("x", dict(xbound=(0.0, 12.0, 1.0))),
+                         ("crp3d", dict(crp3d=True,
+                                        crp_mega_shape=(1, 1, 1))),
+                         ("points", dict(supervise_points=True))):
+            cfg = DetectorConfig(**{**dataclasses.asdict(base), **kw})
+            try:
+                BEVDepthOccupancy(cfg, device="cpu").check_sharding()
+            except ValueError as exc:
+                refusals[name] = str(exc)
+        try:
+            compute_losses({"output_voxels": torch.zeros(1, 4, 8, 4, 20)},
+                           {"gt_occ": torch.zeros(1, 16, 16, 8)},
+                           LossConfig(voxel_lovasz=1.0, voxel_ohem=1.0))
+        except ValueError as exc:
+            refusals["lovasz"] = str(exc)
+        try:
+            layers.Conv3d(8, 6, 5, padding=2, sharded=True)(t("s1_x"))
+        except ValueError as exc:
+            refusals["conv5"] = str(exc)
+        out["refusals"] = refusals
+    out["model"] = spatial_case(rank, world, url, world, *model_args)
+    return out
