@@ -167,10 +167,32 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    gradient leaf within 2% (floor 1e-4 of the global scale), the ranks'
    parameter digests equal; ms per step, halo bytes sent and peak per
    rank.
+15. the last slice: (a) the flagship with K4 at ResNet3D depths 34, 50
+   and 101 (BasicBlock 34, Bottleneck 50 and 101): at each depth the fp32
+   eval forward with the kernels against the same weights built without
+   K4 and run on the plain route (phase 5's limits, TF32 off), its class
+   map through ``infer`` (5 timed calls), K4's launches in the forward
+   and, printed and not counted, in the 3D encoder alone (none fails the
+   phase); at 50 an fp32 step with the kernels and one without (phase
+   7a's limits); at 18, 50 and 101 bf16 B = 1 steps with ``bev_with_cp``
+   (7 timed after the first): ms per step and peak; (b) the branches that
+   read the whole grid on a sharded flagship grid: two gloo ranks at data
+   1 x space 2 (X slabs of 32) with CRP3D (8x8x1), the point branch (a
+   tree frame's LiDAR points) and the OHEM, dice and LGA terms beside ce,
+   sem_scal, geo_scal, depth, the relation loss and point CE and Lovasz,
+   one fp32 step (TF32 off) against one process (phase 14b's limits); ms
+   per step, halo bytes sent and bytes gathered per rank; (c) one train
+   frame's LiDAR products (a 120,000-point sweep) on the native host
+   library and on the numpy route: host ms of each, the pixels where they
+   differ (the native route must be the one taken); (d) the dataset CLIs
+   on the tree: ``print_config``, ``debug_dataset`` (its route line),
+   ``create_data semantickitti`` (scales 1_1 and 1_2 of one packed frame)
+   and ``flops_table`` on the card (its total equals phase 10's eval
+   ``--flops`` count).
 
 Then one JSON line with each kernel (its launches in the serving, bf16
 training, eval, train CLI, data-parallel, optional-branch, phase 12b /
-12c, phase 13 and phase 14 runs, each
+12c, phase 13, phase 14 and phase 15 runs, each
 counted from 0 just
 before its run, its
 error, its times and its bound from phases 2-4c; the
@@ -187,6 +209,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -1244,7 +1267,7 @@ def free_port() -> int:
 
 
 def phase_data_parallel(dev, build, card: str, tmp: str, tree: tuple,
-                        phase9: dict) -> dict:
+                        phase9: dict) -> tuple:
     """Phase 10: data-parallel training and multi-process eval. Two ranks
     spawned on the one card over gloo (NCCL refuses two ranks on one
     device) each run the train CLI on the flagship config at B = 1 (a
@@ -1252,7 +1275,7 @@ def phase_data_parallel(dev, build, card: str, tmp: str, tree: tuple,
     one epoch (2 steps, then the loop's eval of the val frames, two a rank),
     then the eval CLI on phase 9's ``ckpts/``; then one rank over NCCL for
     2 steps; then ``--flops`` on the flagship eval forward. Returns the
-    launches of every run, summed."""
+    launches of every run, summed, and the ``--flops`` line's GFLOP."""
     import io
 
     import stereoscene_torch
@@ -1373,8 +1396,10 @@ def phase_data_parallel(dev, build, card: str, tmp: str, tree: tuple,
     flops_launches = dict(build.launch_counts)
     flops_line = next(ln for ln in captured.getvalue().splitlines()
                       if ln.startswith("[flops]"))
-    if flops_res["eval_frames"] != N_EVAL_FRAMES:
-        raise AssertionError(f"phase 10 --flops eval: {flops_res}")
+    flops_gflop = re.search(r": ([0-9.]+) GFLOP/call", flops_line)
+    if flops_res["eval_frames"] != N_EVAL_FRAMES or flops_gflop is None:
+        raise AssertionError(f"phase 10 --flops eval: {flops_res}, "
+                             f"{flops_line}")
 
     ms = [[logs["step_time_s"] * 1e3 for logs in r["steps"]] for r in ranks]
     red = [r["reduces"] for r in ranks]
@@ -1407,7 +1432,7 @@ def phase_data_parallel(dev, build, card: str, tmp: str, tree: tuple,
                    + [r["eval_launches"] for r in ranks]
                    + [nccl_launches, flops_launches]):
         launches.update(counts)
-    return dict(launches)
+    return dict(launches), flops_gflop.group(1)
 
 
 def phase_fp32_forward(model, batch, build) -> None:
@@ -1527,13 +1552,16 @@ def train_batch(cfg, seed: int, dev) -> dict:
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def phase_train(cfg, dev, build, train, seeded_init_, model_cls) -> dict:
-    """(a) fp32 loss and gradients with the kernels and without; (b) six
-    bf16 steps with the kernels. Returns the launches of (b)."""
+def kernel_step_pair(cfg, batch, dev, build, train, loss_cfg, tag: str,
+                     seeded_init_, model_cls, min_k4: int = 12) -> dict:
+    """One fp32 loss and gradient of ``cfg``'s model (seeded weights) on
+    ``batch``, built with K4 and run with the kernels (K1, P1, K4), and
+    built and run without: the loss within 1e-4 relative, every gradient
+    leaf within 2% (floor 1e-4 of the global scale), K1 and P1 launched
+    once and K4 at least ``min_k4`` times with the kernels, nothing
+    without. Returns the losses, terms, leaf count, floor and launches."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    loss_cfg = train.LossConfig()
-    batch = train_batch(cfg, SEED + 20, dev)
     runs = []
     for kernels in (True, False):
         model = model_cls(cfg, conv3d_kernel=kernels)
@@ -1548,12 +1576,13 @@ def phase_train(cfg, dev, build, train, seeded_init_, model_cls) -> dict:
         del model, state
     (tk, lk, gk, ck, names), (tp, lp, gp, cp, _) = runs
     if (ck.get("gwc_warp") != 1 or ck.get("dcn_gather") != 1
-            or ck.get("conv3d_s1", 0) < 12 or cp):
-        raise AssertionError(f"fp32 step launches: kernels {ck}, plain {cp}")
+            or ck.get("conv3d_s1", 0) < min_k4 or cp):
+        raise AssertionError(f"{tag} fp32 step launches: kernels {ck}, "
+                             f"plain {cp}")
     if not (torch.isfinite(tk)
             and abs(float(tk - tp)) <= 1e-4 * abs(float(tp))):
-        raise AssertionError(f"fp32 step: loss {float(tk)} with the kernels, "
-                             f"{float(tp)} without")
+        raise AssertionError(f"{tag} fp32 step: loss {float(tk)} with the "
+                             f"kernels, {float(tp)} without")
     scale = max(float(g.abs().max()) for g in gp)
     bad = []
     for name, a, b in zip(names, gk, gp):
@@ -1563,17 +1592,27 @@ def phase_train(cfg, dev, build, train, seeded_init_, model_cls) -> dict:
             bad.append((name, err / leaf))
     if bad:
         worst = sorted(bad, key=lambda b: -b[1])[:5]
-        raise AssertionError(f"fp32 step: {len(bad)} of {len(names)} grad "
-                             f"leaves off, worst {worst}")
-    terms = {k: round(float(v), 5) for k, v in lk.items()}
-    print(f"phase 7a fp32 train step, kernels vs plain: loss {float(tk):.6f} "
-          f"vs {float(tp):.6f} ({terms}); "
-          f"{len(names)} grad leaves within 2% (floor {1e-4 * scale:.2e}); "
-          f"launches {ck}", flush=True)
-    del runs, gk, gp
+        raise AssertionError(f"{tag} fp32 step: {len(bad)} of {len(names)} "
+                             f"grad leaves off, worst {worst}")
+    torch.backends.cudnn.deterministic = False
+    return dict(loss=float(tk), plain=float(tp), leaves=len(names),
+                floor=1e-4 * scale, launches=ck,
+                terms={k: round(float(v), 5) for k, v in lk.items()})
+
+
+def phase_train(cfg, dev, build, train, seeded_init_, model_cls) -> dict:
+    """(a) fp32 loss and gradients with the kernels and without; (b) six
+    bf16 steps with the kernels. Returns the launches of (b)."""
+    loss_cfg = train.LossConfig()
+    batch = train_batch(cfg, SEED + 20, dev)
+    pair = kernel_step_pair(cfg, batch, dev, build, train, loss_cfg,
+                            "phase 7a", seeded_init_, model_cls)
+    print(f"phase 7a fp32 train step, kernels vs plain: loss "
+          f"{pair['loss']:.6f} vs {pair['plain']:.6f} ({pair['terms']}); "
+          f"{pair['leaves']} grad leaves within 2% (floor "
+          f"{pair['floor']:.2e}); launches {pair['launches']}", flush=True)
 
     torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cudnn.deterministic = False
     model = model_cls(cfg, conv3d_kernel=True)
     seeded_init_(model, SEED)
     state = train.create_train_state(model)
@@ -2844,14 +2883,33 @@ def recorded_step(train, loss_cfg, state, batch, generator):
             dict(zip([n for n, _ in state.trainable], applied[0])))
 
 
-def sp_rank(rank: int, url: str, weights: str, batch_file: str,
+def branches_setup():
+    """(the flagship DetectorConfig with CRP3D on stage 2's 16x16x2 grid
+    (8x8x1 mega-voxels) and the point branch, its label shape, a LossConfig
+    with the OHEM, dice and LGA voxel terms, the CRP relation loss and the
+    point CE and Lovasz terms beside ce, sem_scal, geo_scal and the BCE
+    depth loss, no streaming)."""
+    from stereoscene_torch.engine.train import LossConfig
+    from stereoscene_torch.models.detector import DetectorConfig
+
+    det = DetectorConfig(crp3d=True, crp_mega_shape=(8, 8, 1),
+                         supervise_points=True)
+    return det, LABEL_SHAPE, LossConfig(
+        voxel_ohem=1.0, voxel_dice=1.0, voxel_lga=1.0, loss_crp_weight=1.0,
+        loss_point_ce_weight=1.0, loss_point_lovasz_weight=1.0)
+
+
+SP_SETUPS = {"highres": highres_setup, "branches": branches_setup}
+
+
+def sp_rank(rank: int, url: str, setup: str, weights: str, batch_file: str,
             reference: str, out: str) -> None:
-    """One rank of phase 14b, in a spawned process: joins the two-rank gloo
-    group at ``url`` on the one card laid out as (data 1, space 2), takes
-    one fp32 step of the highres model with ``bev_with_cp`` and K4 on its
-    X slab (TF32 off), holds the gradients it applied against the
-    one-process ones in ``reference`` and writes the results to ``out``
-    as JSON."""
+    """One rank of phase 14b or 15b, in a spawned process: joins the
+    two-rank gloo group at ``url`` on the one card laid out as (data 1,
+    space 2), takes one fp32 step of the model of ``SP_SETUPS[setup]``
+    with K4 on its X slab (TF32 off), holds the gradients it applied
+    against the one-process ones in ``reference`` and writes the results
+    to ``out`` as JSON."""
     from stereoscene_torch import _build, parallel
     from stereoscene_torch.engine import train
     from stereoscene_torch.models.detector import BEVDepthOccupancy
@@ -2859,7 +2917,7 @@ def sp_rank(rank: int, url: str, weights: str, batch_file: str,
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    det, label_shape, loss_cfg = highres_setup()
+    det, label_shape, loss_cfg = SP_SETUPS[setup]()
     dev = parallel.init_distributed(url, 2, rank, "cuda", backend="gloo",
                                     timeout_s=SP_TIMEOUT_S)
     try:
@@ -2902,6 +2960,98 @@ def sp_rank(rank: int, url: str, weights: str, batch_file: str,
                        peak=peak, launches=launches, halo=halo,
                        digest=digest, bad=bad, leaves=len(ref["grads"]),
                        worst=worst, floor=1e-4 * scale), f)
+
+
+def sharded_step(setup: str, batch: dict, tmp: str, build,
+                 tag: str) -> dict:
+    """One fp32 step (TF32 off) of ``SP_SETUPS[setup]``'s model with K4 on
+    seeded weights and ``batch`` in one process, then on two gloo ranks
+    spawned on the one card at (data 1, space 2) (``sp_rank``): every loss
+    term within 1e-4 relative of one process's, both ranks' terms and
+    parameter digests equal, every gradient leaf within 2% (floor 1e-4 of
+    the global scale), K1, P1 and K4 launched on each rank. Returns the
+    ranks' results, the one-process terms, ms and peak, the largest
+    relative difference and the launches of all three runs."""
+    from stereoscene_torch.engine import train
+    from stereoscene_torch.models.detector import BEVDepthOccupancy
+    from stereoscene_torch.utils.weights import seeded_init_
+
+    det, label_shape, loss_cfg = SP_SETUPS[setup]()
+    launches = collections.Counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = BEVDepthOccupancy(det, conv3d_kernel=True,
+                              label_shape=label_shape)
+    seeded_init_(model, SEED + 1)
+    files = {k: os.path.join(tmp, f"sp_{setup}_{k}.pt")
+             for k in ("weights", "batch", "reference")}
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               files["weights"])
+    torch.save({k: v.cpu() for k, v in batch.items()}, files["batch"])
+    state = train.create_train_state(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    ref_logs, ref_grads = recorded_step(
+        train, loss_cfg, state, batch,
+        torch.Generator(device=batch["imgs"].device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    launches.update(build.launch_counts)
+    torch.save({"logs": ref_logs, "grads": ref_grads}, files["reference"])
+    del model, state, batch, ref_grads
+    torch.cuda.empty_cache()
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    url = f"tcp://127.0.0.1:{free_port()}"
+    outs = [os.path.join(tmp, f"sp_{setup}_rank{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=sp_rank, args=(
+        r, url, setup, files["weights"], files["batch"],
+        files["reference"], outs[r])) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    if any(p.exitcode for p in procs):
+        raise AssertionError(f"{tag} ranks exited with "
+                             f"{[p.exitcode for p in procs]}")
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    rel = max(abs(v - ref_logs[k]) / abs(ref_logs[k])
+              for k, v in ranks[0]["logs"].items())
+    for r in ranks:
+        launches.update(r["launches"])
+        for name in ("gwc_warp", "dcn_gather", "conv3d_s1"):
+            if r["launches"].get(name, 0) < 1:
+                raise AssertionError(f"{tag}: {name} never launched on "
+                                     f"a rank ({r['launches']})")
+    if (ranks[0]["logs"] != ranks[1]["logs"] or rel > 1e-4
+            or ranks[0]["logs"].keys() != ref_logs.keys()
+            or ranks[0]["digest"] != ranks[1]["digest"]
+            or any(r["bad"] for r in ranks)):
+        raise AssertionError(
+            f"{tag} sharded vs one process: losses {ranks[0]['logs']} / "
+            f"{ranks[1]['logs']} vs {ref_logs} (largest relative "
+            f"{rel:.2e}, limit 1e-4); digests {ranks[0]['digest']} / "
+            f"{ranks[1]['digest']}; leaves off "
+            f"{[sorted(r['bad'], key=lambda b: -b[1])[:5] for r in ranks]}")
+    return dict(ranks=ranks, ref_logs=ref_logs, rel=rel, one_ms=one_ms,
+                one_peak=one_peak, ranks_s=ranks_s, launches=launches)
 
 
 def phase_highres(dev, build, card: str, tmp: str) -> dict:
@@ -3045,78 +3195,12 @@ def phase_highres(dev, build, card: str, tmp: str) -> dict:
     # (b) the grid sharded over two gloo ranks, fp32, B = 1, TF32 off,
     # against one process on the same batch and weights
     t_b = time.perf_counter()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    model = BEVDepthOccupancy(det, conv3d_kernel=True,
-                              label_shape=label_shape)
-    seeded_init_(model, SEED + 1)
-    files = {k: os.path.join(tmp, f"sp_{k}.pt")
-             for k in ("weights", "batch", "reference")}
-    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
-               files["weights"])
-    batch = highres_batch(det, label_shape, 1, SEED + 43, dev)
-    torch.save({k: v.cpu() for k, v in batch.items()}, files["batch"])
-    state = train.create_train_state(model)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    build.launch_counts.clear()
-    t0 = time.perf_counter()
-    ref_logs, ref_grads = recorded_step(
-        train, loss_cfg, state, batch,
-        torch.Generator(device=dev).manual_seed(SEED))
-    torch.cuda.synchronize()
-    one_ms = (time.perf_counter() - t0) * 1e3
-    one_peak = torch.cuda.max_memory_allocated() / 2**30
-    launches.update(build.launch_counts)
-    torch.save({"logs": ref_logs, "grads": ref_grads}, files["reference"])
-    del model, state, batch, ref_grads
-    torch.cuda.empty_cache()
-
-    ctx = torch.multiprocessing.get_context("spawn")
-    url = f"tcp://127.0.0.1:{free_port()}"
-    outs = [os.path.join(tmp, f"sp_rank{r}.json") for r in range(2)]
-    procs = [ctx.Process(target=sp_rank, args=(
-        r, url, files["weights"], files["batch"], files["reference"],
-        outs[r])) for r in range(2)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + SP_TIMEOUT_S
-    try:
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    ranks_s = time.perf_counter() - t0
-    if any(p.exitcode for p in procs):
-        raise AssertionError(f"phase 14b ranks exited with "
-                             f"{[p.exitcode for p in procs]}")
-    ranks = []
-    for out in outs:
-        with open(out) as f:
-            ranks.append(json.load(f))
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
-    rel = max(abs(v - ref_logs[k]) / abs(ref_logs[k])
-              for k, v in ranks[0]["logs"].items())
-    for r in ranks:
-        launches.update(r["launches"])
-        for name in ("gwc_warp", "dcn_gather", "conv3d_s1"):
-            if r["launches"].get(name, 0) < 1:
-                raise AssertionError(f"phase 14b: {name} never launched on "
-                                     f"a rank ({r['launches']})")
-    if (ranks[0]["logs"] != ranks[1]["logs"] or rel > 1e-4
-            or ranks[0]["digest"] != ranks[1]["digest"]
-            or any(r["bad"] for r in ranks)):
-        raise AssertionError(
-            f"phase 14b sharded vs one process: losses {ranks[0]['logs']} / "
-            f"{ranks[1]['logs']} vs {ref_logs} (largest relative "
-            f"{rel:.2e}, limit 1e-4); digests {ranks[0]['digest']} / "
-            f"{ranks[1]['digest']}; leaves off "
-            f"{[sorted(r['bad'], key=lambda b: -b[1])[:5] for r in ranks]}")
+    sp = sharded_step("highres", highres_batch(det, label_shape, 1,
+                                               SEED + 43, dev),
+                      tmp, build, "phase 14b")
+    launches.update(sp["launches"])
+    ranks, ref_logs, rel = sp["ranks"], sp["ref_logs"], sp["rel"]
+    one_ms, one_peak, ranks_s = sp["one_ms"], sp["one_peak"], sp["ranks_s"]
     t_b = time.perf_counter() - t_b
 
     def fmt(run):
@@ -3171,6 +3255,354 @@ def phase_highres(dev, build, card: str, tmp: str) -> dict:
           f"{t_b:.1f} s; phase 14 "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     return dict(launches), k3, k4
+
+
+DEPTHS = (34, 50, 101)  # phase 15a's ResNet3D depths
+DEPTH_STEPS = 8  # phase 15a's bf16 steps a depth (the first is set-up)
+DEPTH_INFERS = 5  # phase 15a's timed ``infer`` calls a depth
+
+
+def phase_depths(dev, build, card: str) -> dict:
+    """Phase 15a: the flagship at ResNet3D depths 34, 50 and 101 with K4
+    (``conv3d_kernel=True``): at each depth the fp32 eval forward with the
+    kernels (K1, K3, P1, K4) against the plain route of the same weights
+    built without K4 (depth_prob 2e-4, logits 2e-3 of max|ref|, TF32
+    off), its class map through ``infer`` (timed ``DEPTH_INFERS`` times),
+    and K4's launches in the forward and, printed only, in the 3D encoder
+    alone (none fails); at depth 50 an fp32 step with the kernels and one
+    without (``kernel_step_pair``); at 18, 50 and 101 bf16 B = 1 steps
+    with ``bev_with_cp``: ms per step and peak. Returns the launches of
+    the forwards, ``infer`` and the steps (not of the encoder-alone
+    run, which no path makes)."""
+    from stereoscene_torch.engine import train
+    from stereoscene_torch.models.detector import (
+        BEVDepthOccupancy,
+        DetectorConfig,
+    )
+    from stereoscene_torch.utils.weights import seeded_init_
+
+    t_start = time.perf_counter()
+    launches = collections.Counter()
+    frame = flagship_batch(DetectorConfig(), SEED + 50, dev)
+    evals = {}
+    for depth in DEPTHS:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = DetectorConfig(backbone_with_cp=False, resnet_depth=depth)
+        plain = BEVDepthOccupancy(cfg)
+        seeded_init_(plain, SEED)
+        model = BEVDepthOccupancy(cfg, conv3d_kernel=True)
+        seeded_init_(model, SEED)
+        build.launch_counts.clear()
+        with_k = model(frame, use_kernel=True)
+        counts = dict(build.launch_counts)
+        without = plain(frame, use_kernel=False)
+        torch.cuda.synchronize()
+        del plain
+        if build.launch_counts != counts:
+            raise AssertionError(f"phase 15a depth {depth}: the plain "
+                                 f"route launched a kernel")
+        dp_err = max_err(with_k["depth_prob"], without["depth_prob"])
+        ref = without["output_voxels"]
+        logit_err = max_err(with_k["output_voxels"], ref) / float(
+            ref.abs().max())
+        build.launch_counts.clear()
+        infer_ms = []
+        for _ in range(DEPTH_INFERS):
+            t0 = time.perf_counter()
+            classes = model.infer(frame, use_kernel=True)
+            torch.cuda.synchronize()
+            infer_ms.append((time.perf_counter() - t0) * 1e3)
+        counts_infer = dict(build.launch_counts)
+        vox = torch.randn((1, cfg.numC_Trans) + cfg.grid_shape, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              SEED + depth))
+        build.launch_counts.clear()
+        with torch.no_grad():
+            outs = model.img_bev_encoder_backbone(vox)
+        k4_encoder = build.launch_counts.get("conv3d_s1", 0)
+        launches.update(counts)
+        launches.update(counts_infer)
+        widths = [o.shape[1] for o in outs]
+        if (dp_err > 2e-4 or logit_err > 2e-3
+                or not all(bool(torch.isfinite(v).all())
+                           for v in with_k.values())
+                or tuple(classes.shape) != (1,) + LABEL_SHAPE
+                or k4_encoder < 1 or counts.get("conv3d_s1", 0) < 1
+                or counts.get("gwc_warp") != 1
+                or counts.get("dcn_gather") != 1
+                or counts.get("lift_splat_fused") != 1):
+            raise AssertionError(
+                f"phase 15a depth {depth}: depth_prob {dp_err:.3e} (limit "
+                f"2e-4), logits / max|ref| {logit_err:.3e} (limit 2e-3), "
+                f"classes {tuple(classes.shape)}, launches {counts}, K4 in "
+                f"the 3D encoder {k4_encoder}")
+        evals[depth] = dict(dp=dp_err, logits=logit_err, infer_ms=infer_ms,
+                            k4=counts.get("conv3d_s1", 0),
+                            k4_encoder=k4_encoder, widths=widths,
+                            params=sum(p.numel() for p in model.parameters()))
+        del model, with_k, without, classes, outs, vox
+        torch.cuda.empty_cache()
+
+    # depth 50: an fp32 step with the kernels (K1, P1, K4) and one without
+    cfg50 = DetectorConfig(resnet_depth=50)
+    batch = train_batch(cfg50, SEED + 51, dev)
+    build.launch_counts.clear()
+    # K4: the view transformer's 8 and one Bottleneck conv2 a stage-0
+    # block (3)
+    pair = kernel_step_pair(cfg50, batch, dev, build, train,
+                            train.LossConfig(), "phase 15a depth 50",
+                            seeded_init_, BEVDepthOccupancy, min_k4=11)
+    launches.update(pair["launches"])
+    torch.cuda.empty_cache()
+
+    # depths 18, 50 and 101: bf16 B = 1 steps with bev_with_cp
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    steps = {}
+    for depth in (18, 50, 101):
+        cfg = DetectorConfig(resnet_depth=depth, bev_with_cp=True)
+        model = BEVDepthOccupancy(cfg, conv3d_kernel=True)
+        seeded_init_(model, SEED)
+        state = train.create_train_state(model)
+        step = train.make_train_step(train.LossConfig(), bf16=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.launch_counts.clear()
+        times, losses = [], []
+        for _ in range(DEPTH_STEPS):
+            t0 = time.perf_counter()
+            state, logs = step(state, batch,
+                               torch.Generator(device=dev).manual_seed(SEED))
+            losses.append(float(logs["loss_total"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(build.launch_counts)
+        launches.update(counts)
+        per = {k: v / DEPTH_STEPS for k, v in counts.items()}
+        if (not all(math.isfinite(v) for v in losses)
+                or per.get("gwc_warp") != 2 or per.get("dcn_gather") != 2
+                or per.get("conv3d_s1", 0) < 12):
+            raise AssertionError(f"phase 15a bf16 depth {depth}: losses "
+                                 f"{losses}, launches {counts}")
+        steps[depth] = dict(times=times, losses=losses, per=per,
+                            peak=torch.cuda.max_memory_allocated() / 2**30)
+        del model, state, step
+        torch.cuda.empty_cache()
+    del batch
+    per_depth = "; ".join(
+        f"depth {d}: stage widths {e['widths']}, {e['params'] / 1e6:.2f} M "
+        f"parameters, depth_prob {e['dp']:.3e}, logits / max|ref| "
+        f"{e['logits']:.3e}, infer ms {statistics.median(e['infer_ms']):.1f} "
+        f"(median of {DEPTH_INFERS}; samples "
+        f"{', '.join(f'{t:.1f}' for t in e['infer_ms'])}; K4 on, fp32 "
+        f"kernel), K4 launches a forward {e['k4']} (3D encoder "
+        f"{e['k4_encoder']})" for d, e in evals.items())
+    bf16 = "; ".join(
+        f"depth {d}: ms per step {statistics.median(r['times'][1:]):.1f} "
+        f"(median of the last {DEPTH_STEPS - 1}, min "
+        f"{min(r['times'][1:]):.1f}, max {max(r['times'][1:]):.1f}; "
+        f"samples {', '.join(f'{t:.1f}' for t in r['times'])}), peak "
+        f"{r['peak']:.2f} GiB, loss_total {r['losses'][0]:.4f} -> "
+        f"{r['losses'][-1]:.4f}, launches a step {r['per']}"
+        for d, r in steps.items())
+    print(f"phase 15a ResNet3D depths {DEPTHS} on the flagship with K4 on "
+          f"{card}: fp32 eval forward, kernels vs plain (TF32 off): "
+          f"{per_depth}; depth 50 fp32 step, kernels vs plain: loss "
+          f"{pair['loss']:.6f} vs {pair['plain']:.6f}, {pair['leaves']} "
+          f"grad leaves within 2% (floor {pair['floor']:.2e}), launches "
+          f"{pair['launches']}; bf16 B = 1 steps with bev_with_cp: {bf16}; "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return dict(launches)
+
+
+def branch_batch(tree: tuple, dev) -> dict:
+    """One train frame of the tree (B = 1) through the flagship train
+    pipeline with LiDAR (points, depth) and the relation labels of stage
+    2's grid (16, 16, 2), as tensors on ``dev``."""
+    from stereoscene_torch.engine.loop import to_device
+
+    batches, _, _ = optional_batches(branches_setup()[0], tree, 1)
+    return to_device({k: np.asarray(v)[:1] for k, v in batches[0].items()},
+                     dev)
+
+
+def phase_sharded_branches(dev, build, card: str, tmp: str,
+                           tree: tuple) -> dict:
+    """Phase 15b: the branches that read the whole grid on a sharded
+    flagship grid: two gloo ranks on the one card at (data 1, space 2), X
+    slabs of 32, CRP3D, the point branch and the OHEM, dice and LGA voxel
+    terms on beside ce, sem_scal, geo_scal, depth, the relation loss and
+    the point CE and Lovasz terms, no streaming; one fp32 step (TF32 off)
+    against one process (``sharded_step``). Returns its launches."""
+    t0 = time.perf_counter()
+    det = branches_setup()[0]
+    sp = sharded_step("branches", branch_batch(tree, dev), tmp, build,
+                      "phase 15b")
+    ranks, ref = sp["ranks"], sp["ref_logs"]
+    names = ("loss_voxel_ohem_0", "loss_voxel_dice_0", "loss_voxel_lga_0",
+             "loss_rel_ce", "loss_point_ce", "loss_point_lovasz")
+    missing = [n for n in names if n not in ref]
+    if missing or not all(math.isfinite(v) for v in ref.values()):
+        raise AssertionError(f"phase 15b: missing {missing} or non-finite "
+                             f"terms {ref}")
+    print(f"phase 15b the whole-grid branches sharded over 2 gloo ranks on "
+          f"{card} (data 1 x space 2, X slabs of "
+          f"{det.grid_shape[0] // 2}; "
+          f"two ranks time-slicing one card), fp32 B = 1, TF32 off, K4 on, "
+          f"CRP3D {det.crp_mega_shape}, the point branch, OHEM, dice, LGA: "
+          f"terms {ranks[0]['logs']} vs one process {ref} (largest "
+          f"relative difference {sp['rel']:.2e}, limit 1e-4); "
+          f"{ranks[0]['leaves']} gradient leaves within 2% (floor "
+          f"{ranks[0]['floor']:.2e}; worst "
+          f"{max(r['worst'] for r in ranks):.2e} of its leaf); digests "
+          f"equal; ms per step by rank "
+          f"{[round(r['step_ms'], 1) for r in ranks]} (one process "
+          f"{sp['one_ms']:.1f}); bytes a step by rank: halo sent "
+          f"{[r['halo']['bytes'] for r in ranks]} in "
+          f"{ranks[0]['halo']['exchanges']} exchanges, gathered "
+          f"{[r['halo']['gathered'] for r in ranks]}; peak GiB by rank "
+          f"{[round(r['peak'], 2) for r in ranks]} (one process "
+          f"{sp['one_peak']:.2f}); launches by rank "
+          f"{[r['launches'] for r in ranks]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(sp["launches"])
+
+
+def phase_native(card: str, tree: tuple) -> None:
+    """Phase 15c: one train frame's LiDAR products (its 120,000-point
+    sweep, the flagship train pipeline) through the native host library
+    and through the numpy route: host ms of each (median of 5), the route
+    this machine takes (it must be the native one) and the pixels where
+    the two routes' depth and label maps differ."""
+    from stereoscene_torch import native
+    from stereoscene_torch.data import (
+        PipelineConfig,
+        SemanticKittiIndex,
+        SemanticKittiPipeline,
+    )
+    from stereoscene_torch.data.pipeline import lidar_route
+
+    root, ann, lidar_root = tree
+    if lidar_route() != "native":
+        raise AssertionError("phase 15c: the native host library did not "
+                             "build or load (g++)")
+    pipe = SemanticKittiPipeline(PipelineConfig(
+        input_size=(384, 1280), is_train=True, load_lidar_depth=True))
+    frame = SemanticKittiIndex(data_root=root, ann_file=ann, split="train",
+                               lidar_root=lidar_root,
+                               lidarseg_root=lidar_root).frames[0]
+    sample = pipe(frame, seed=SEED)
+    products, ms = {}, {}
+    available = native.available
+    for route in ("native", "numpy"):
+        if route == "numpy":
+            native.available = lambda: False
+        try:
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                products[route] = pipe._lidar_products(frame, sample)
+                times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            native.available = available
+        ms[route] = times
+    diff = {k: int((products["native"][k] != products["numpy"][k]).sum())
+            for k in ("gt_depth", "img_seg")}
+    hits = [int((products["native"]["gt_depth"][e] > 0).sum())
+            for e in range(2)]
+    same = all(np.array_equal(products["native"][k], products["numpy"][k])
+               for k in ("points_occ", "points_uv", "points_count"))
+    if min(hits) < N_LIDAR_POINTS // 2 or not same:
+        raise AssertionError(f"phase 15c: gt_depth pixels per eye {hits}, "
+                             f"points equal on both routes {same}")
+    print(f"phase 15c LiDAR products of one {N_LIDAR_POINTS}-point sweep on "
+          f"the host of {card}'s machine: route {lidar_route()}; host ms "
+          f"native {statistics.median(ms['native']):.2f} (samples "
+          f"{', '.join(f'{t:.2f}' for t in ms['native'])}), numpy "
+          f"{statistics.median(ms['numpy']):.2f} (samples "
+          f"{', '.join(f'{t:.2f}' for t in ms['numpy'])}); pixels where the "
+          f"routes differ (both eyes, of {hits} hit) {diff}; points_* equal",
+          flush=True)
+
+
+def phase_dataset_tools(dev, card: str, tmp: str, tree: tuple,
+                        eval_gflop: str) -> None:
+    """Phase 15d: the dataset CLIs of the port on phase 8's tree:
+    ``print_config`` on the flagship config (JSON), ``debug_dataset`` on
+    two train frames with LiDAR (the route line says native), ``create_data
+    semantickitti`` on one frame of packed voxel labels at full size
+    (scales 1_1 and 1_2), and ``flops_table`` on the card: its three
+    stages' total, which must print as phase 10's eval CLI ``--flops``
+    count of the same forward (``eval_gflop``, GFLOP to 2 places)."""
+    import io
+
+    import stereoscene_torch
+    from stereoscene_torch.tools import (
+        create_data,
+        debug_dataset,
+        flops_table,
+        print_config,
+    )
+
+    t0 = time.perf_counter()
+    root, ann, lidar_root = tree
+    flagship = os.path.join(os.path.dirname(stereoscene_torch.__file__),
+                            "configs", EVAL_CONFIG)
+
+    def run(main, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = main(argv)
+        return out.getvalue(), result
+
+    text, _ = run(print_config.main, [flagship])
+    merged = json.loads(text)
+    config = os.path.join(tmp, "tools_config.py")
+    with open(config, "w") as f:
+        f.write(f"_base_ = [{flagship!r}]\n"
+                f"data = dict(train=dict(data_root={root!r}, "
+                f"ann_file={ann!r}))\nlidar_root = {lidar_root!r}\n"
+                f"lidarseg_root = {lidar_root!r}\n")
+    debug, _ = run(debug_dataset.main, [config, "--num-frames", "2"])
+    lines = debug.splitlines()
+    rng = np.random.default_rng(SEED + 150)
+    voxels = os.path.join(tmp, "kitti", "dataset", "sequences", "00",
+                          "voxels")
+    os.makedirs(voxels)
+    n = int(np.prod(LABEL_SHAPE))
+    rng.choice([0, 10, 40, 44, 48, 50, 70, 252], n).astype(
+        np.uint16).tofile(os.path.join(voxels, "000000.label"))
+    np.packbits(rng.random(n) < 0.1).tofile(
+        os.path.join(voxels, "000000.invalid"))
+    made, _ = run(create_data.main, [
+        "semantickitti", "--root", os.path.join(tmp, "kitti"), "--out",
+        os.path.join(tmp, "kitti_out"), "--scales", "1_1", "1_2"])
+    labels = [np.load(os.path.join(tmp, "kitti_out", "labels", "00",
+                                   f"000000_{s}.npy")) for s in ("1_1",
+                                                                 "1_2")]
+    table_text, table = run(flops_table.main, [flagship, "--device",
+                                               str(dev)])
+    stages = [table[name] for name in flops_table.STAGES]
+    if (lines[0] != "LiDAR depth route: native"
+            or not any(line.startswith("  gt_depth") for line in lines)
+            or "img_backbone" not in merged["model"]
+            or made != "wrote 2 label files\n"
+            or labels[0].shape != LABEL_SHAPE
+            or labels[1].shape != tuple(s // 2 for s in LABEL_SHAPE)
+            or min(stages) <= 0
+            or f"{table['TOTAL'] / 1e9:.2f}" != eval_gflop):
+        raise AssertionError(f"phase 15d: debug_dataset {lines[:3]}, "
+                             f"create_data {made!r}, shapes "
+                             f"{[a.shape for a in labels]}, flops {table} "
+                             f"vs the eval CLI's {eval_gflop} GFLOP")
+    print(f"phase 15d dataset CLIs on {card}: print_config "
+          f"{len(merged)} top-level keys; debug_dataset {lines[0]!r}, "
+          f"{len(lines)} lines for 2 frames; create_data semantickitti "
+          f"{made.strip()!r} ({labels[0].shape}, {labels[1].shape}); "
+          f"flops_table on the card (GFLOP) "
+          f"{ {k: round(v / 1e9, 2) for k, v in table.items()} }, the "
+          f"total equal to phase 10's eval --flops {eval_gflop} GFLOP; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> None:
@@ -3237,15 +3669,23 @@ def main() -> None:
         phase9 = phase_train_cli(dev, _build, card, tmp, tree)
         train_cli = phase9["launches"]
         torch.cuda.empty_cache()
-        data_parallel = phase_data_parallel(dev, _build, card, tmp, tree,
-                                            phase9)
+        data_parallel, eval_gflop = phase_data_parallel(
+            dev, _build, card, tmp, tree, phase9)
         torch.cuda.empty_cache()
         optional = phase_optional(dev, _build, card, tmp, tree)
         torch.cuda.empty_cache()
-    variants = phase_bevocc(dev, _build, card)
-    nuscenes = phase_nuscenes(dev, _build, card)
-    with tempfile.TemporaryDirectory() as tmp:
+        variants = phase_bevocc(dev, _build, card)
+        nuscenes = phase_nuscenes(dev, _build, card)
         highres, _, _ = phase_highres(dev, _build, card, tmp)
+        torch.cuda.empty_cache()
+        t15 = time.perf_counter()
+        depths = phase_depths(dev, _build, card)
+        torch.cuda.empty_cache()
+        branches = phase_sharded_branches(dev, _build, card, tmp, tree)
+        torch.cuda.empty_cache()
+        phase_native(card, tree)
+        phase_dataset_tools(dev, card, tmp, tree, eval_gflop)
+        print(f"phase 15 {time.perf_counter() - t15:.1f} s", flush=True)
     for path, counts, needs in (
             ("serving", serving, ("gwc_warp", "dcn_gather",
                                   "lift_splat_fused")),
@@ -3260,7 +3700,11 @@ def main() -> None:
             ("bev_with_cp and DepthNetStereo", variants,
              ("gwc_warp", "dcn_gather")),
             ("highres", highres, ("gwc_warp", "dcn_gather", "conv3d_s1",
-                                  "lift_splat_fused"))):
+                                  "lift_splat_fused")),
+            ("ResNet3D depths", depths, ("gwc_warp", "dcn_gather",
+                                         "conv3d_s1", "lift_splat_fused")),
+            ("sharded branches", branches, ("gwc_warp", "dcn_gather",
+                                            "conv3d_s1"))):
         for name in needs:
             if counts.get(name, 0) < 1:
                 raise AssertionError(f"{name} never launched in {path}")
@@ -3284,7 +3728,8 @@ def main() -> None:
         k["launches"] = sum(run.get(k["name"], 0)
                             for run in (serving, training, evaluation,
                                         train_cli, data_parallel, optional,
-                                        variants, nuscenes, highres))
+                                        variants, nuscenes, highres, depths,
+                                        branches))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,11 @@ PIL on the host CPU):
   project the velodyne points through each camera, keep the in-image
   points, write them far first so that the NEAREST return wins each pixel,
   and produce the sparse depth map, the labeled point set (points_occ),
-  their normalized uv (points_uv) and an image-seg map. Numpy only: the JAX
-  package's optional native scatter is not ported.
+  their normalized uv (points_uv) and an image-seg map. The scatter takes
+  the native host library (``stereoscene_torch.native``) where it builds
+  and numpy elsewhere, as the JAX package's pipeline does, so each machine
+  gives the JAX package's default products; ``lidar_route()`` names the
+  route.
 
 The output dict uses plain numpy arrays; ``loader.BatchLoader`` stacks them.
 """
@@ -39,6 +42,7 @@ from .labels import (
     downsample_label_monoscene,
     seg_remap_lut,
 )
+from .. import native
 from .semantic_kitti import FrameInfo
 
 IMG_MEAN = np.array([123.675, 116.28, 103.53], np.float32)  # RGB
@@ -157,6 +161,29 @@ def project_lidar_to_image(
     uv = pix[:, :2] / np.maximum(np.abs(depth), 1e-6) * np.sign(depth)
     uv = (post_rot[:2, :2] @ uv.T).T + post_tran[:2]
     return np.concatenate([uv, depth], axis=1)
+
+
+def scatter_depth_numpy(uvd: np.ndarray, seg: np.ndarray, h: int,
+                        w: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy route of the depth scatter (the JAX pipeline's fallback):
+    the points written far first, so that numpy's in-order fancy-index
+    writes leave the nearest one on a pixel; u and v rounded half to
+    even. -> (depth, seg) maps [h, w], 0 where no point lands."""
+    order = np.argsort(-uvd[:, 2])
+    uvd_o = uvd[order]
+    ui = np.round(uvd_o[:, 0]).astype(np.int64)
+    vi = np.round(uvd_o[:, 1]).astype(np.int64)
+    dmap = np.zeros((h, w), np.float32)
+    smap = np.zeros((h, w), np.float32)
+    dmap[vi, ui] = uvd_o[:, 2]
+    smap[vi, ui] = seg[order]
+    return dmap, smap
+
+
+def lidar_route() -> str:
+    """The route of the LiDAR depth scatter in this process: ``"native"``
+    (the g++ host library) or ``"numpy"``."""
+    return "native" if native.available() else "numpy"
 
 
 class SemanticKittiPipeline:
@@ -289,17 +316,10 @@ class SemanticKittiPipeline:
             )
             vu = uvd[valid]
             vseg = seg[valid]
-            # far first: numpy's fancy-index assignment writes repeated
-            # indices in order, so the last (nearest) point wins a pixel
-            order = np.argsort(-vu[:, 2])
-            vu_o = vu[order]
-            vseg_o = vseg[order]
-            ui = np.round(vu_o[:, 0]).astype(np.int64)
-            vi = np.round(vu_o[:, 1]).astype(np.int64)
-            dmap = np.zeros((h, w), np.float32)
-            smap = np.zeros((h, w), np.float32)
-            dmap[vi, ui] = vu_o[:, 2]
-            smap[vi, ui] = vseg_o
+            if native.available():
+                dmap, smap = native.scatter_depth(vu, h, w, vseg)
+            else:
+                dmap, smap = scatter_depth_numpy(vu, vseg, h, w)
             depth_maps.append(dmap)
             seg_maps.append(smap)
 

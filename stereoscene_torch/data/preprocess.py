@@ -1,8 +1,8 @@
 """Offline SemanticKITTI voxel-label preprocessing, port of
 ``stereoscene_tpu/data/preprocess.py`` (a copy: the port imports nothing of
-the JAX package). Numpy only: the JAX package's optional native library is
-not ported, so the numpy branches below are the port's one route (the JAX
-package's tests hold its native kernels to these same numpy formulas).
+the JAX package). ``process_frame`` and ``create_voxel_labels`` take the
+native host library (``stereoscene_torch.native``) where it builds, as the
+JAX package's do, and their numpy routes elsewhere.
 
 Rebuild of ``tools/data_converter/kitti_process/semantic_kitti_preprocess.py``
 (+ io_data.py): for every frame of sequences 00-10, read the packed voxel
@@ -22,6 +22,7 @@ from typing import Iterable, Optional
 
 import numpy as np
 
+from .. import native
 from .labels import remap_lut
 
 SCENE_SIZE = (256, 256, 32)
@@ -45,6 +46,10 @@ def process_frame(label_path: str, invalid_path: str) -> np.ndarray:
     """One frame -> [256, 256, 32] uint8 train-id grid (255 = invalid)."""
     lut = remap_lut()
     label = read_label_file(label_path)
+    if native.available():
+        packed = np.fromfile(invalid_path, dtype=np.uint8)
+        out = native.unpack_remap_labels(label, packed, lut)
+        return out.reshape(SCENE_SIZE)
     invalid = read_invalid_file(invalid_path)
     out = lut[label.astype(np.uint16)].astype(np.float32)
     out[np.isclose(invalid, 1)] = 255
@@ -81,8 +86,8 @@ def create_voxel_labels(
 ) -> np.ndarray:
     """Per-voxel majority vote from labeled points (the numba
     ``nb_process_label`` / CreateVoxelLabels equivalent,
-    ref: datasets/pipelines/voxel_labels.py:16-63), by a vectorized numpy
-    histogram.
+    ref: datasets/pipelines/voxel_labels.py:16-63): the native library's
+    where it builds, else a vectorized numpy histogram.
 
     Args:
       points: [N, 3] xyz; labels: [N] int class ids.
@@ -97,6 +102,9 @@ def create_voxel_labels(
     coords = coords[valid]
     labels = labels[valid].astype(np.int32)
     num_classes = int(labels.max(initial=0)) + 1
+    if native.available():
+        return native.point_majority_vote(coords, labels, grid_shape,
+                                          num_classes)
 
     nx, ny, nz = grid_shape
     vid = (coords[:, 0].astype(np.int64) * ny + coords[:, 1]) * nz + coords[:, 2]

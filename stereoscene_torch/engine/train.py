@@ -35,11 +35,15 @@ reducer hooks, and ``bf16_params`` swaps the parameters inside the step.
 
 Spatial sharding (``parallel.spatial``): the logits are this rank's X slab
 and ``compute_losses`` takes the matching slab of the labels; the voxel
-terms pool over every rank, the image-side terms (depth, imgseg) over the
+terms pool over every rank, the terms that every space rank computes
+whole (depth, imgseg, the CRP relation loss, the point losses) over the
 data group, and ``reduce_gradients``' mean over all ranks is then the
-global gradient (see there). The voxel terms that read the whole grid
-(OHEM's per-sample top-k, Lovasz's global sort, dice, LGA's neighbours)
-are refused on a sharded grid.
+global gradient (see there). OHEM picks its voxels from the sample's
+losses gathered over the space group, dice pools its three sums, and LGA
+reads its neighbours' labels through a 1-plane halo. The voxel Lovasz
+term is refused on a sharded grid: its sort runs over every voxel of the
+batch, which the port does not distribute, and the JAX step cannot give
+the term at all (a local import makes ``voxel_lovasz > 0`` raise there).
 """
 
 from __future__ import annotations
@@ -183,16 +187,15 @@ class LossConfig:
 
 
 def check_sharding(cfg: LossConfig) -> None:
-    """Raise, by name, where the grid is sharded and ``cfg`` weights a
-    voxel term that reads the whole grid."""
-    if not spatial.active():
-        return
-    unsharded = [name for name in ("voxel_ohem", "voxel_lovasz",
-                                   "voxel_dice", "voxel_lga")
-                 if getattr(cfg, name) > 0]
-    if unsharded:
-        raise ValueError(f"spatial sharding does not cover the loss terms "
-                         f"{unsharded}; set them to 0 or run unsharded")
+    """Raise, by name, where the grid is sharded and ``cfg`` weights the
+    voxel Lovasz term, whose sort over every voxel of the batch is not
+    distributed (and which the JAX step cannot give: its local import
+    makes ``voxel_lovasz > 0`` raise)."""
+    if spatial.active() and cfg.voxel_lovasz > 0:
+        raise ValueError(
+            "spatial sharding does not cover the loss term voxel_lovasz "
+            "(a sort over every voxel of the batch); set it to 0 or run "
+            "unsharded")
 
 
 def compute_losses(outputs: Dict[str, torch.Tensor],
@@ -314,7 +317,8 @@ def _point_losses(point_logits, batch, cfg):
     """Point supervision (ref occhead.py:363-399): the labels column of
     points_occ is the target, label 0 ignored (the reference's
     CrossEntropyLoss(ignore_index=0) / lovasz ignore=0), slots past
-    points_count masked out."""
+    points_count masked out. Every space rank holds the whole point
+    logits, so the terms pool over the data group."""
     out = {}
     logits = point_logits.float()  # [B, P, C]
     target = batch["points_occ"][..., -1].long()  # [B, P]
@@ -331,14 +335,15 @@ def _point_losses(point_logits, batch, cfg):
             -1, safe[..., None])[..., 0]
         validf = valid.float()
         num, den = all_sum(torch.stack([(nll * validf).sum(),
-                                        validf.sum()]))
+                                        validf.sum()]), data_group())
         out["loss_point_ce"] = cfg.loss_point_ce_weight * (
             num / den.clamp_min(1.0))
     if cfg.loss_point_lovasz_weight > 0:
         # fold the padding into the ignore label (0)
         labels = torch.where(in_count, target, 0)
         out["loss_point_lovasz"] = cfg.loss_point_lovasz_weight * (
-            lovasz_softmax(torch.softmax(logits, dim=-1), labels, ignore=0))
+            lovasz_softmax(torch.softmax(logits, dim=-1), labels, ignore=0,
+                           group=data_group()))
     return out
 
 

@@ -23,8 +23,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
-from ..parallel import all_sum, data_group
+from ..parallel import all_sum, data_group, space_rank, space_size, spatial
 
 _EPS = 1e-12
 
@@ -42,23 +43,38 @@ def soft_dice_loss(occ_probs: torch.Tensor, target: torch.Tensor,
     return 1.0 - (2.0 * inter + smooth) / (p_sum + occ_sum + smooth)
 
 
+def _padded_labels(t: torch.Tensor) -> torch.Tensor:
+    """int64 labels [B, X, Y, Z] with one plane more on each side of X, Y
+    and Z: the ignore label 255 past the grid's ends, and on an X slab of
+    a sharded grid (``parallel.spatial``) the neighbours' boundary planes
+    along X (a 1-plane label halo)."""
+    if spatial.active():
+        t = spatial.halo(t, 1, 1, dim=1)
+        if space_rank() == 0:
+            t[:, 0] = 255
+        if space_rank() == space_size() - 1:
+            t[:, -1] = 255
+    else:
+        t = F.pad(t, (0, 0, 0, 0, 1, 1), value=255)
+    return F.pad(t, (1, 1, 1, 1), value=255)
+
+
 def local_geometric_anisotropy(target: torch.Tensor) -> torch.Tensor:
     """Count of 6-neighbours with a different (valid) class per voxel of
     target [B, X, Y, Z] (ref pal_loss.py: M_LGA, the number of
-    semantically different neighbours); float32."""
+    semantically different neighbours; no neighbour past the grid's ends);
+    float32."""
     t = target.long()
     valid = t != 255
+    padded = _padded_labels(t)
     counts = torch.zeros(t.shape, dtype=torch.float32, device=t.device)
     for axis in (1, 2, 3):
         n = t.shape[axis]
-        for shift in (1, -1):
-            nb = torch.roll(t, shift, dims=axis)
-            nb_valid = torch.roll(valid, shift, dims=axis)
-            # roll wraps; mask the wrapped boundary slice
-            idx = torch.arange(n, device=t.device).reshape(
-                [n if d == axis else 1 for d in range(t.dim())])
-            in_range = (idx >= 1) if shift == 1 else (idx <= n - 2)
-            counts += ((nb != t) & nb_valid & valid & in_range).float()
+        for start in (0, 2):
+            nb = padded.narrow(axis, start, n)
+            for other in {1, 2, 3} - {axis}:
+                nb = nb.narrow(other, 1, t.shape[other])
+            counts += ((nb != t) & (nb != 255) & valid).float()
     return counts
 
 

@@ -10,8 +10,9 @@ batched ``torch.sort``. The loss value does not depend on how equal errors
 are ordered; its gradient can.
 
 Over ranks (``parallel``) the sort is over the global batch: the
-probabilities and labels are gathered from every rank first
-(``all_gather_rows``), so each rank computes the global loss.
+probabilities and labels are gathered from the ranks of ``group`` first
+(``all_gather_rows``; every rank by default), so each rank computes the
+global loss.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
 
 def lovasz_softmax(probs: torch.Tensor, labels: torch.Tensor,
                    ignore: Optional[int] = 255,
-                   classes: str = "present") -> torch.Tensor:
+                   classes: str = "present", group=None) -> torch.Tensor:
     """Multi-class Lovasz-softmax loss.
 
     Args:
@@ -45,10 +46,11 @@ def lovasz_softmax(probs: torch.Tensor, labels: torch.Tensor,
       ignore: label to exclude.
       classes: 'present' averages only over classes present in the target;
         'all' averages over every class.
+      group: the ranks whose rows make the batch (None: every rank).
     """
     c = probs.shape[-1]
-    probs = all_gather_rows(probs.float().reshape(-1, c))
-    labels = all_gather_rows(labels.reshape(-1))
+    probs = all_gather_rows(probs.float().reshape(-1, c), group)
+    labels = all_gather_rows(labels.reshape(-1), group)
     valid = (torch.ones_like(labels, dtype=torch.bool) if ignore is None
              else labels != ignore)
     cls = torch.arange(c, device=labels.device, dtype=labels.dtype)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel import all_sum
+from ..parallel import all_sum, space_rank, spatial
 
 # ref: semkitti.py:8-31
 SEMANTIC_KITTI_CLASS_FREQUENCIES = np.array([
@@ -127,13 +127,36 @@ def kl_sep(p: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return all_sum((per_elem * mask).sum())
 
 
+def ohem_keep_mask(per_voxel: torch.Tensor, top_k: float) -> torch.Tensor:
+    """The voxels OHEM keeps, per sample (row) of per_voxel [B, N] (the
+    weighted losses in flat voxel order, -inf where invalid): the top
+    ``floor(n_valid * top_k)``, ties at the threshold broken as the JAX
+    package's descending sort (``argsort(...)[::-1]``) breaks them, the
+    higher flat index first."""
+    valid = per_voxel > -float("inf")
+    k = torch.floor(valid.sum(1).float() * top_k).long()
+    desc = torch.sort(per_voxel, dim=1, descending=True).values
+    thr = desc.gather(1, (k - 1).clamp_min(0)[:, None])
+    greater = per_voxel > thr
+    ties = per_voxel == thr
+    # 1 for the tie of highest index, 2 for the next ...
+    tie_rank = ties.flip(1).long().cumsum(1).flip(1)
+    n_ties = (k - greater.sum(1))[:, None]
+    keep = greater | (ties & (tie_rank <= n_ties))
+    return keep & (k > 0)[:, None]
+
+
 def ohem_ce_ssc_loss(logits: torch.Tensor, target: torch.Tensor,
                      class_weights, top_k: float = 0.25) -> torch.Tensor:
     """Online hard-example mining CE (ref: semkitti.py:151-185): per
     sample, the top ``floor(n_valid * top_k)`` weighted losses of its valid
-    voxels, summed over the batch and normalised by the sum of their class
-    weights (clamped at 1e-4). The selection is per sample, so over ranks
-    the two sums pool."""
+    voxels (``ohem_keep_mask``), summed over the batch and normalised by
+    the sum of their class weights (clamped at 1e-4). The selection is per
+    sample, so over ranks the two sums pool. On an X slab of a sharded
+    grid (``parallel.spatial``; the slab is a contiguous run of each
+    sample's flat voxels) the selection is made on the sample's detached
+    losses gathered over the space group, and each rank sums its slab's
+    kept voxels."""
     c = logits.shape[-1]
     b = logits.shape[0]
     logp = torch.log_softmax(logits.float().reshape(b, -1, c), dim=-1)
@@ -145,13 +168,11 @@ def ohem_ce_ssc_loss(logits: torch.Tensor, target: torch.Tensor,
                         device=logits.device)[safe]
     per_voxel = torch.where(valid, nll * w,
                             torch.full_like(nll, -float("inf")))
-    sorted_loss, order = torch.sort(per_voxel, dim=1, descending=True)
-    sorted_w = torch.where(valid, w, torch.zeros_like(w)).gather(1, order)
-    k = torch.floor(valid.sum(1).float() * top_k).long()
-    keep = torch.arange(per_voxel.shape[1], device=logits.device)[None] \
-        < k[:, None]
-    zero = torch.zeros_like(sorted_w)
+    n = per_voxel.shape[1]
+    whole = spatial.gather_slabs(per_voxel.detach(), dim=1)
+    keep = ohem_keep_mask(whole, top_k).narrow(1, space_rank() * n, n)
+    zero = torch.zeros_like(w)
     topk_sum, weight_sum = all_sum(torch.stack([
-        torch.where(keep, sorted_loss, zero).sum(),
-        torch.where(keep, sorted_w, zero).sum()]))
+        torch.where(keep, per_voxel, zero).sum(),
+        torch.where(keep, w, zero).sum()]))
     return topk_sum / weight_sum.clamp_min(1e-4)

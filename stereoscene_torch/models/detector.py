@@ -36,8 +36,15 @@ ranks each rank runs the image side and the splat whole, keeps the X slab
 of its rank from the voxel features, and runs the 3D encoder, its neck
 and the head on the slab. In training the logits stay slabs (the losses
 take the matching slab of the labels, ``engine.train``); in eval they are
-gathered whole on every space rank. CRP3D and the point branch read the
-whole grid and are refused under sharding.
+gathered whole on every space rank. The branches that read the whole grid
+run on it too: CRP3D gathers its stage's slabs and runs whole on every
+space rank (``models/resnet3d.py``), and the point branch samples each
+point on the rank whose slab holds it and sums the samples over the space
+group (``models/occhead.py``).
+
+``resnet_depth`` picks the 3D encoder's blocks (BasicBlock at 10/18/34,
+Bottleneck at 50/101, whose stages are 4x ``voxel_channels`` wide); the
+voxel neck and CRP3D take each stage's real width.
 """
 
 from __future__ import annotations
@@ -59,7 +66,7 @@ from .efficientnet import CustomEfficientNet
 from .layers import checkpoint_region, remat
 from .lss import ViewTransformerLiftSplatShootVoxel
 from .occhead import OccHead
-from .resnet3d import CustomResNet3D
+from .resnet3d import CustomResNet3D, stage_widths
 from .second_fpn import SECONDFPN, SECONDFPN3D
 
 
@@ -191,10 +198,12 @@ class BEVDepthOccupancy(nn.Module):
             cfg.numC_Trans, cfg.voxel_channels, strides,
             depth=cfg.resnet_depth, norm_groups=cfg.norm_groups,
             conv3d_kernel=conv3d_kernel, crp3d=cfg.crp3d,
-            crp_mega_shape=cfg.crp_mega_shape)
+            crp_mega_shape=cfg.crp_mega_shape,
+            out_indices=cfg.voxel_out_indices)
         self.img_bev_encoder_neck = SECONDFPN3D(
-            cfg.voxel_channels, cfg.voxel_out_channels,
-            cfg.fpn3d_upsample_strides, cfg.norm_groups)
+            stage_widths(cfg.resnet_depth, cfg.voxel_channels),
+            cfg.voxel_out_channels, cfg.fpn3d_upsample_strides,
+            cfg.norm_groups)
         self.pts_bbox_head = OccHead(sum(cfg.voxel_out_channels),
                                      cfg.out_channel, cfg.norm_groups,
                                      supervise_points=cfg.supervise_points)
@@ -276,16 +285,10 @@ class BEVDepthOccupancy(nn.Module):
     def check_sharding(self) -> None:
         """Raise, by name, where this model cannot run on the space group's
         layout: a grid X that does not divide into slabs at every stride
-        of the 3D encoder, or a branch that reads the whole grid."""
-        if not spatial.active():
-            return
-        spatial.check_grid(self.cfg.grid_shape[0], self.voxel_total_stride)
-        for on, name in ((self.cfg.crp3d, "crp3d (CRP3D)"),
-                         (self.cfg.supervise_points,
-                          "supervise_points (the point branch)")):
-            if on:
-                raise ValueError(f"spatial sharding does not cover {name}; "
-                                 f"turn it off or run unsharded")
+        of the 3D encoder."""
+        if spatial.active():
+            spatial.check_grid(self.cfg.grid_shape[0],
+                               self.voxel_total_stride)
 
     # ---- stage 3: 3D encoder + head ----
     def bev_encode(self, voxel_feat):

@@ -15,30 +15,44 @@ bilinearly at their projections (``sampling_img_feats``, through
 the branch on without the two options, as the JAX package's does. The two
 samplers are the JAX package's formulas, not ``F.grid_sample``: the
 trilinear one puts a point's x on the volume's first axis, and the
-bilinear one clips the top-left corner to [0, W-2] x [0, H-2].
+bilinear one clips the top-left corner to [0, W-2] x [0, H-2]. On an X
+slab of a sharded grid the trilinear sampling is ``sharded_point_sample``
+(no gather of the volume); the image sampling and the MLP run whole on
+every space rank.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import (all_sum, space_group, space_rank, space_size,
+                        spatial)
 from .layers import Conv3d, GroupNorm, Mlp
 
 
-def trilinear_point_sample(vol: torch.Tensor,
-                           pts: torch.Tensor) -> torch.Tensor:
+def trilinear_point_sample(vol: torch.Tensor, pts: torch.Tensor,
+                           x_size: Optional[int] = None,
+                           x_start: int = 0) -> torch.Tensor:
     """Sample vol [B, X, Y, Z, C] at normalized points pts [B, P, 3] in
     [-1, 1]^3 (pts[..., 0] on X, 1 on Y, 2 on Z), half-pixel centres
-    (align_corners=False), zero outside -> [B, P, C] in vol's dtype."""
+    (align_corners=False), zero outside -> [B, P, C] in vol's dtype.
+
+    With ``x_size``, ``vol`` holds the planes ``x_start`` .. ``x_start +
+    X - 1`` of a grid ``x_size`` planes long: the points are placed on
+    that grid, and a corner outside ``vol``'s planes reads zero."""
     b, xs, ys, zs, c = vol.shape
-    dims = torch.tensor([xs, ys, zs], dtype=torch.float32, device=vol.device)
+    gx = xs if x_size is None else x_size
+    dims = torch.tensor([gx, ys, zs], dtype=torch.float32, device=vol.device)
     idx = ((pts.float() + 1.0) * dims - 1.0) / 2.0
     i0 = torch.floor(idx).long()
     frac = idx - i0.float()
     flat = vol.reshape(b, -1, c)
-    hi = dims.long() - 1
+    lo = torch.tensor([x_start, 0, 0], device=vol.device)
+    hi = torch.tensor([x_start + xs - 1, ys - 1, zs - 1], device=vol.device)
     out = torch.zeros((b, pts.shape[1], c), dtype=vol.dtype,
                       device=vol.device)
     for cz in (0, 1):
@@ -46,14 +60,35 @@ def trilinear_point_sample(vol: torch.Tensor,
             for cx in (0, 1):
                 off = torch.tensor([cx, cy, cz], device=vol.device)
                 ii = i0 + off
-                inside = ((ii >= 0) & (ii <= hi)).all(dim=-1)
-                ii = torch.minimum(ii.clamp_min(0), hi)
+                inside = ((ii >= lo) & (ii <= hi)).all(dim=-1)
+                ii = torch.minimum(torch.maximum(ii, lo), hi) - lo
                 lin = (ii[..., 0] * ys + ii[..., 1]) * zs + ii[..., 2]
                 vals = flat.gather(1, lin[..., None].expand(-1, -1, c))
                 w = torch.where(off.bool(), frac, 1.0 - frac).prod(dim=-1)
                 out = out + (vals * (w * inside.float())[..., None]).to(
                     vol.dtype)
     return out
+
+
+def sharded_point_sample(slab: torch.Tensor,
+                         pts: torch.Tensor) -> torch.Tensor:
+    """``trilinear_point_sample`` of the whole grid from this rank's X slab
+    slab [B, X / S, Y, Z, C] of a sharded grid (``parallel.spatial``):
+    each point is sampled on the rank whose slab holds its lower X corner
+    x0 (clamped to the grid), from the slab with the upper neighbour's
+    first plane (a (0, 1)-plane halo), zeros elsewhere; the samples are
+    summed over the space group, so every space rank holds them all."""
+    n = slab.shape[1]
+    x_size = n * space_size()
+    start = space_rank() * n
+    padded = spatial.halo(slab, 0, 1, dim=1)
+    # x0 as the sampler computes it
+    x0 = torch.floor(((pts[..., 0].float() + 1.0) * float(x_size) - 1.0)
+                     / 2.0).long().clamp(0, x_size - 1)
+    mine = (x0 >= start) & (x0 < start + n)
+    local = trilinear_point_sample(padded, pts, x_size, start)
+    local = local * mine[..., None].to(local.dtype)
+    return all_sum(local, space_group())
 
 
 def bilinear_image_sample(feat: torch.Tensor,
@@ -114,7 +149,9 @@ class OccHead(nn.Module):
         ``points`` [B, P, 3] in [-1, 1]^3 (with ``sampling_img_feats``,
         ``img_feats`` [B, C_img, H, W] sampled at ``points_uv`` [B, P, 2])
         -> point logits [B, P, classes]."""
-        feats = [trilinear_point_sample(x.permute(0, 2, 3, 4, 1), points)]
+        vol = x.permute(0, 2, 3, 4, 1)
+        feats = [sharded_point_sample(vol, points) if spatial.active()
+                 else trilinear_point_sample(vol, points)]
         if self.sampling_img_feats and img_feats is not None:
             sampled = bilinear_image_sample(img_feats.permute(0, 2, 3, 1),
                                             points_uv)

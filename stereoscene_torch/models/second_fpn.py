@@ -52,4 +52,7 @@ class SECONDFPN3D(nn.Module):
                                     upsample_strides))
 
     def forward(self, feats):
+        if len(feats) != len(self.deblocks):
+            raise ValueError(f"SECONDFPN3D takes {len(self.deblocks)} "
+                             f"levels, got {len(feats)}")
         return torch.cat([d(f) for d, f in zip(self.deblocks, feats)], dim=1)

@@ -223,32 +223,33 @@ def all_sum(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 class _AllGather(torch.autograd.Function):
-    """Forward: the ranks' tensors concatenated along dim 0, in rank order
-    (every rank holds the same shape). Backward: this rank's rows of the
-    sum over the ranks of the incoming gradients, since every rank's copy
-    feeds its own part of the loss."""
+    """Forward: the tensors of the ranks of ``group`` concatenated along
+    dim 0, in rank order (every rank holds the same shape). Backward: this
+    rank's rows of the sum over them of the incoming gradients, since
+    every rank's copy feeds its own part of the loss."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, x)
-        ctx.rows = x.shape[0]
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        ctx.rows, ctx.group = x.shape[0], group
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
-        r = dist.get_rank()
-        return grad[r * ctx.rows:(r + 1) * ctx.rows]
+        dist.all_reduce(grad, group=ctx.group)
+        r = dist.get_rank(ctx.group)
+        return grad[r * ctx.rows:(r + 1) * ctx.rows], None
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """The ranks' ``t`` concatenated along dim 0 in rank order,
-    differentiably (a loss that sorts over the global batch, Lovasz);
-    ``t`` itself without a group."""
-    return _AllGather.apply(t) if initialized() else t
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The ``t`` of the ranks of ``group`` (None: every rank) concatenated
+    along dim 0 in rank order, differentiably (a loss that sorts over the
+    global batch, Lovasz); ``t`` itself without a process group."""
+    return _AllGather.apply(t, group) if initialized() else t
 
 
 def _flat_apply(tensors: Sequence[torch.Tensor],

@@ -19,7 +19,9 @@ each rank holds an X slab of every voxel tensor, channels-first
 - ``models.layers.Conv3d`` and ``GroupNorm`` built with ``sharded=True``
   (the 3D encoder, its neck and the head) exchange halos and pool their
   statistics over the space group where it has more than one rank;
-- ``gather_slabs`` joins the slabs of a tensor on every space rank (eval).
+- ``gather_slabs`` joins the slabs of a tensor on every space rank,
+  differentiably: the eval's logits, and the branches that read the whole
+  grid (CRP3D, OHEM's threshold).
 
 The exchange runs point to point (``batch_isend_irecv``) under NCCL and
 for CPU tensors under gloo. gloo's send and recv take CPU tensors only, so
@@ -27,7 +29,8 @@ for CUDA tensors under gloo (ranks sharing one card) the planes go
 through an ``all_reduce`` of the space group instead, which gloo runs on
 CUDA tensors: each rank writes its outgoing planes into its own row of a
 zero fp32 buffer of S rows and reads its neighbours' rows of the sum.
-``HALO_STATS`` counts the exchanges and the bytes each rank sends.
+``HALO_STATS`` counts the exchanges and the bytes each rank sends, and
+the bytes of the gathered tensors.
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ import torch.distributed as dist
 
 from . import mesh
 
-HALO_STATS = {"exchanges": 0, "bytes": 0}
+# halo exchanges and the bytes this rank sent in them; bytes of the tensors
+# gather_slabs built (the all_reduce's payload)
+HALO_STATS = {"exchanges": 0, "bytes": 0, "gathered": 0}
 
 
 def active() -> bool:
@@ -197,19 +202,42 @@ def halo(x: torch.Tensor, lo: int, hi: int, dim: int = 2,
     return torch.cat(parts, dim)
 
 
-@torch.no_grad()
+class _Gather(torch.autograd.Function):
+    """The slabs joined along ``dim``: an ``all_reduce`` of the whole
+    tensor with zeros outside this rank's slab (exact, and run by gloo on
+    CUDA tensors too). Backward, its transpose: this rank's slab of the
+    sum over the space group of the whole gradients. Each rank's objective
+    is the global loss (``mesh.reduce_gradients``), and a region that every
+    space rank computes whole from the gathered tensor sends back on each
+    rank only what its own part of that objective needs (its slab of the
+    output, its replicated terms pooled over the data group), so the sum
+    adds each part once."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        n, s = mesh.space_size(), mesh.space_rank()
+        size = x.shape[dim]
+        ctx.dim, ctx.start, ctx.size = dim, s * size, size
+        shape = list(x.shape)
+        shape[dim] = n * size
+        full = x.new_zeros(shape)
+        full.narrow(dim, s * size, size).copy_(x)
+        dist.all_reduce(full, group=mesh.space_group())
+        HALO_STATS["gathered"] += full.numel() * full.element_size()
+        return full
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=mesh.space_group())
+        return grad.narrow(ctx.dim, ctx.start, ctx.size), None
+
+
 def gather_slabs(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
     """The space group's slabs of ``x`` joined along ``dim`` in slab order,
-    on every space rank (not differentiable; eval). An ``all_reduce`` of
-    the whole tensor with zeros outside this rank's slab: exact, and run
-    by gloo on CUDA tensors too. ``x`` itself unsharded."""
-    n = mesh.space_size()
-    if n == 1:
+    on every space rank, differentiably (``_Gather``); ``x`` itself
+    unsharded. The eval gathers its logits with it, CRP3D its stage
+    (``models/resnet3d.py``), OHEM its detached losses."""
+    if mesh.space_size() == 1:
         return x
-    size = x.shape[dim]
-    shape = list(x.shape)
-    shape[dim] = n * size
-    full = x.new_zeros(shape)
-    full.narrow(dim, mesh.space_rank() * size, size).copy_(x)
-    dist.all_reduce(full, group=mesh.space_group())
-    return full
+    return _Gather.apply(x, dim)

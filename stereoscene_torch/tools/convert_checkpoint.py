@@ -14,8 +14,10 @@ and checkpoint bookkeeping aside; a file saved after the reference's
 pretrained backbone) and reports the keys left out on either side; the
 model's own seeded values stand for the missing ones. The output,
 ``{"state_dict": ...}``, loads into the port's eval CLI (``--checkpoint``).
-``CONFIG`` builds the model, on the card unless ``--device cpu``; a
-ResNet3D depth the port does not build raises by name.
+``CONFIG`` builds the model, on the card unless ``--device cpu``, at any
+ResNet3D depth the JAX package builds (10, 18, 34, 50, 101: the keys of
+the Bottleneck depths carry ``conv3`` / ``bn3``); another depth raises by
+name.
 """
 
 from __future__ import annotations

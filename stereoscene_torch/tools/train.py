@@ -37,8 +37,9 @@ its neck, the head and the voxel losses on its X slab of the grid
 (``parallel.spatial``), so a step equals one process at the global batch.
 The train-time eval runs in the same layout, each frame scored once. S
 must divide W, and the grid's X must divide into S slabs at every stride
-of the 3D encoder; CRP3D, the point branch and the OHEM, Lovasz, dice and
-LGA voxel terms read the whole grid and are refused.
+of the 3D encoder. CRP3D, the point branch and the OHEM, dice and LGA
+voxel terms run on the sharded grid; the voxel Lovasz term is refused
+(its sort over every voxel of the batch is not distributed).
 """
 
 from __future__ import annotations

@@ -211,6 +211,39 @@ def efficientnet_rules(m: _Map, arch: str, ours: str = "img_backbone",
         conv_module(f"{ours}/head", f"{theirs}.{len(stages) + 1}")
 
 
+def resnet3d_rules(m: _Map, depth: int, block_inplanes: Sequence[int],
+                   block_strides: Sequence[int],
+                   bev: str = "") -> None:
+    """A ``CustomResNet3D`` at ``depth`` under the prefix ``bev`` (none
+    for the module alone): its input projection, and its stages' flax
+    ``layer{s}_block{j}/conv1..conv3, gn1..gn3, downsample_conv,
+    downsample_gn`` -> the reference's ``layers.{s}.{j}.conv1..conv3,
+    bn1..bn3, downsample.0/.1`` (conv3 / gn3 in the Bottleneck depths)."""
+    from ..models.resnet3d import STAGE_BLOCKS, block_class
+
+    ours_pre, theirs_pre = (f"{bev}/", f"{bev}.") if bev else ("", "")
+    m.conv(f"{ours_pre}input_proj_conv", f"{theirs_pre}input_proj.0",
+           bias=False)
+    m.gn(f"{ours_pre}input_proj_gn", f"{theirs_pre}input_proj.1")
+    block = block_class(depth)
+    n_convs = 2 if block.expansion == 1 else 3
+    strides = tuple(block_strides) + (2,) * len(block_inplanes)
+    cin = block_inplanes[0]
+    for s, planes in enumerate(block_inplanes):
+        for j in range(STAGE_BLOCKS[depth][s]):
+            ours = f"{ours_pre}layer{s}_block{j}"
+            theirs = f"{theirs_pre}layers.{s}.{j}"
+            for i in range(1, n_convs + 1):
+                m.conv(f"{ours}/conv{i}", f"{theirs}.conv{i}", bias=False)
+                m.gn(f"{ours}/gn{i}", f"{theirs}.bn{i}")
+            stride = strides[s] if j == 0 else 1
+            if stride != 1 or cin != planes * block.expansion:
+                m.conv(f"{ours}/downsample_conv", f"{theirs}.downsample.0",
+                       bias=False)
+                m.gn(f"{ours}/downsample_gn", f"{theirs}.downsample.1")
+            cin = planes * block.expansion
+
+
 def flax_name_map(cfg, head=None) -> _Map:
     """flax leaf path -> (port state_dict key, flax->torch transform).
     ``head`` (the model's ``OccHead``) adds the rules of the point branch's
@@ -296,23 +329,8 @@ def flax_name_map(cfg, head=None) -> _Map:
     m.params[f"{vi}/ca3d_alpha"] = (f"{tvi}.CA3D.alpha", _same, _same)
 
     bev = "img_bev_encoder_backbone"
-    m.conv(f"{bev}/input_proj_conv", f"{bev}.input_proj.0", bias=False)
-    m.gn(f"{bev}/input_proj_gn", f"{bev}.input_proj.1")
-    blocks = {10: 1, 18: 2}[cfg.resnet_depth]
-    cin = cfg.voxel_channels[0]
-    strides = tuple(cfg.voxel_strides) + (2,) * len(cfg.voxel_channels)
-    for s, planes in enumerate(cfg.voxel_channels):
-        for j in range(blocks):
-            ours, theirs = f"{bev}/layer{s}_block{j}", f"{bev}.layers.{s}.{j}"
-            m.conv(f"{ours}/conv1", f"{theirs}.conv1", bias=False)
-            m.gn(f"{ours}/gn1", f"{theirs}.bn1")
-            m.conv(f"{ours}/conv2", f"{theirs}.conv2", bias=False)
-            m.gn(f"{ours}/gn2", f"{theirs}.bn2")
-            if j == 0 and (strides[s] != 1 or cin != planes):
-                m.conv(f"{ours}/downsample_conv", f"{theirs}.downsample.0",
-                       bias=False)
-                m.gn(f"{ours}/downsample_gn", f"{theirs}.downsample.1")
-        cin = planes
+    resnet3d_rules(m, cfg.resnet_depth, cfg.voxel_channels,
+                   cfg.voxel_strides, bev)
 
     neck = "img_bev_encoder_neck"
     for i in range(len(cfg.voxel_channels)):

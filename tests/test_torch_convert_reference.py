@@ -20,8 +20,9 @@ max|ref| of JAX's converted model (the model limit of
 tests/test_torch_spatial.py), and the port's fused model within 1e-5 of
 its unfused one. Last the CLI: ``--prefix`` strips a prefix, ``--no-strict``
 converts a backbone-only file and reports what it left out, a strict run
-of that file raises, and a ResNet3D depth the port does not build is
-refused by name.
+of that file raises, and a ResNet3D depth that neither package builds
+is refused by name (tests/test_torch_resnet3d_depths.py converts the
+depths both build).
 """
 
 import os
@@ -301,10 +302,12 @@ def test_convert_cli_prefix_and_no_strict(seeded_reference, tmp_path,
 def test_convert_cli_refuses_a_depth_the_port_does_not_build(tmp_path):
     from stereoscene_torch.tools import convert_checkpoint as cli
 
-    cfg = tmp_path / "depth34.py"
+    # the port builds every depth the JAX package builds (10, 18, 34, 50,
+    # 101); a depth of neither is refused by name
+    cfg = tmp_path / "depth26.py"
     cfg.write_text(f"_base_ = [{TINY_CFG!r}]\n"
-                   "model = dict(img_bev_encoder_backbone=dict(depth=34))\n")
+                   "model = dict(img_bev_encoder_backbone=dict(depth=26))\n")
     src = str(tmp_path / "empty.pth")
     torch.save({}, src)
-    with pytest.raises(ValueError, match="CustomResNet3D depth 34"):
+    with pytest.raises(ValueError, match="CustomResNet3D depth 26"):
         cli.main([src, str(cfg), "--out", os.devnull, "--device", "cpu"])

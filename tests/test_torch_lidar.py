@@ -4,9 +4,12 @@ The tree is tests/test_torch_data.py's, written as sequence 00 (the train
 split) with a ``velodyne/*.bin`` scan and a ``labels/*.label`` lidarseg file
 per frame. A scan holds points in front of the car, behind it and outside
 the image, and rays with several returns, so that some pixels are hit by
-more than one point. The JAX pipeline takes its g++ scatter when that
-library is available; ``stereoscene_tpu.native.available`` is patched to
-False here, so both sides run numpy and every comparison is exact.
+more than one point. Each pipeline takes its g++ scatter when its native
+library is available; ``native.available`` of both packages is patched to
+False here, so both sides run numpy and every comparison is exact, except
+in ``test_default_routes_match_jax``, which patches nothing: there both
+take their default route (the native scatter where g++ builds, as it does
+here), and the products must still be equal bitwise.
 """
 
 import dataclasses
@@ -15,6 +18,7 @@ import os
 import numpy as np
 import pytest
 
+import stereoscene_torch.native
 import stereoscene_tpu.native
 from stereoscene_tpu import data as jdata
 from stereoscene_torch import data
@@ -76,6 +80,8 @@ def tree(tmp_path_factory):
 @pytest.fixture(autouse=True)
 def numpy_scatter(monkeypatch):
     monkeypatch.setattr(stereoscene_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(stereoscene_torch.native, "available",
+                        lambda: False)
 
 
 def _equal(a, b):
@@ -212,3 +218,20 @@ def test_batch_loader_epochs_match_jax(tree):
             _equal(a, b)
     assert dataclasses.asdict(tidx.frames[0]).keys() == \
         dataclasses.asdict(jidx.frames[0]).keys()
+
+
+def test_default_routes_match_jax(tree, monkeypatch):
+    """Neither package patched: the port's products equal the JAX
+    pipeline's default ones bitwise, and the port names its route."""
+    monkeypatch.undo()
+    from tests.test_torch_native import load_jax_native
+
+    load_jax_native()
+    jidx, tidx = tree
+    jp, tp = _pipelines(JITTER_AUG)
+    assert data.pipeline.lidar_route() == (
+        "native" if stereoscene_tpu.native.available() else "numpy")
+    for i, seed in ((1, 4), (3, 9)):
+        sample = tp(tidx.frames[i], seed=seed)
+        _equal(jp._lidar_products(jidx.frames[i], sample),
+               tp._lidar_products(tidx.frames[i], sample))

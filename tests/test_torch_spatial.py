@@ -33,8 +33,10 @@ each on its X slab of the same seeded numpy inputs.
   two-pass BatchNorm statistics move a few leaves of the image side past
   2% (the kinks of the TINY gradient, tests/test_torch_train.py), and the
   data-parallel step moves the same leaves by the same amounts.
-- The refusals, by name: an X that does not divide, CRP3D, the point
-  branch, the OHEM and Lovasz terms, a conv without a halo rule.
+- The refusals, by name: an X that does not divide, the voxel Lovasz
+  term (with OHEM on beside it, which runs sharded), a conv without a halo
+  rule. CRP3D, the point branch and the OHEM, dice and LGA terms run on
+  the sharded grid (tests/test_torch_spatial_branches.py).
 """
 
 import dataclasses
@@ -145,9 +147,7 @@ def test_replicate_halo_and_gather(units):
 
 @pytest.mark.parametrize("key, words", [
     ("x", ["X = 12", "2 space shards", "total stride 4"]),
-    ("crp3d", ["crp3d"]),
-    ("points", ["supervise_points"]),
-    ("lovasz", ["voxel_ohem", "voxel_lovasz"]),
+    ("lovasz", ["voxel_lovasz"]),
     ("conv5", ["no halo rule", "(5, 1, 2, 1)"]),
 ])
 def test_refusals_name_what_is_refused(units, key, words):
@@ -156,6 +156,7 @@ def test_refusals_name_what_is_refused(units, key, words):
         assert "spatial sharding" in message
         for word in words:
             assert word in message, message
+        assert "voxel_ohem" not in message
 
 
 def test_sharded_forward_matches_one_process_and_jax(units):

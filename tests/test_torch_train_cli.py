@@ -13,7 +13,7 @@ loss (its training forward and ``compute_losses``, which ``make_train_step``
 differentiates) on the JAX loader's first batch, with the port's initial
 weights carried across by ``utils.weights.flax_trees`` (rtol 2e-3, as in
 tests/test_torch_train.py). Both sides take the ASPP dropout mask from
-numpy (tests/test_torch_train.py ``_aspp_mask_patch``); the JAX pipeline's
+numpy (tests/test_torch_train.py ``_aspp_mask_patch``); both pipelines'
 native scatter is off, so both batches come from the same numpy code.
 """
 
@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import stereoscene_torch.native
 import stereoscene_tpu.native
 from stereoscene_tpu import data as jdata
 from stereoscene_tpu.config import Config as JConfig
@@ -81,6 +82,7 @@ def trained(tree, tmp_path_factory):
     work_dir = str(tmp_path_factory.mktemp("work"))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(stereoscene_tpu.native, "available", lambda: False)
+        mp.setattr(stereoscene_torch.native, "available", lambda: False)
         _aspp_mask_patch(mp, _aspp_mask())
         state = train_cli.main([
             TINY_CFG, "--work-dir", work_dir, "--device", "cpu",

@@ -377,7 +377,7 @@ def spatial_case(rank, world, url, space, cfg, weights, batch, loss_kw,
     from stereoscene_torch.engine.loop import step_generator
     from stereoscene_torch.models.detector import BEVDepthOccupancy
 
-    if url is not None:
+    if url is not None and parallel.space_size() != space:
         parallel.init_space(space)
     b = next(iter(batch.values())).shape[0] // parallel.data_size()
     rows = _rows(batch, parallel.data_rank(), b)
@@ -473,15 +473,12 @@ def spatial_units(rank, world, url, data, model_args):
         out["gathered"] = spatial.gather_slabs(t("s1_x"))
         refusals = {}
         base = model_args[0]
-        for name, kw in (("x", dict(xbound=(0.0, 12.0, 1.0))),
-                         ("crp3d", dict(crp3d=True,
-                                        crp_mega_shape=(1, 1, 1))),
-                         ("points", dict(supervise_points=True))):
-            cfg = DetectorConfig(**{**dataclasses.asdict(base), **kw})
-            try:
-                BEVDepthOccupancy(cfg, device="cpu").check_sharding()
-            except ValueError as exc:
-                refusals[name] = str(exc)
+        cfg = DetectorConfig(**{**dataclasses.asdict(base),
+                                "xbound": (0.0, 12.0, 1.0)})
+        try:
+            BEVDepthOccupancy(cfg, device="cpu").check_sharding()
+        except ValueError as exc:
+            refusals["x"] = str(exc)
         try:
             compute_losses({"output_voxels": torch.zeros(1, 4, 8, 4, 20)},
                            {"gt_occ": torch.zeros(1, 16, 16, 8)},
@@ -494,4 +491,51 @@ def spatial_units(rank, world, url, data, model_args):
             refusals["conv5"] = str(exc)
         out["refusals"] = refusals
     out["model"] = spatial_case(rank, world, url, world, *model_args)
+    return out
+
+
+def loss_units(rank, world, url, units):
+    """tests/test_torch_spatial_branches.py's loss-level cases on this
+    rank's X slab (dim 1) of each case's numpy logits [B, X, Y, Z, C] and
+    labels [B, X, Y, Z], or whole in one process (``url`` None): the loss
+    and its gradient with respect to the (slab of the) logits, divided by
+    the ranks (each rank's objective is the global loss, so its gradient
+    is ``world`` times its share, as ``reduce_gradients`` takes it). Each
+    case is (function name in ``losses``, logits, labels, keywords)."""
+    from stereoscene_torch import losses
+    from stereoscene_torch.parallel import spatial
+
+    if url is not None and parallel.space_size() != world:
+        parallel.init_space(world)
+    out = {}
+    for name, (fn, logits, labels, kw) in units.items():
+        x = spatial.shard_voxels(torch.from_numpy(logits), dim=1)
+        x = x.clone().requires_grad_()
+        t = spatial.shard_voxels(torch.from_numpy(labels), dim=1)
+        weights = losses.class_weights_from_frequencies()
+        loss = getattr(losses, fn)(x, t, weights, **kw)
+        (grad,) = torch.autograd.grad(loss, [x])
+        out[name] = {"loss": float(loss.detach()), "grad": grad / world}
+    return out
+
+
+def spatial_branches(rank, world, url, cases, units):
+    """tests/test_torch_spatial_branches.py's run on rank ``rank`` of a
+    (1, ``world``) layout, or in one process when ``url`` is None: every
+    model case through ``spatial_case`` (cfg, weights, batch, loss
+    keywords), then the loss-level ``loss_units``, and the refusal of the
+    voxel Lovasz term, by message."""
+    from stereoscene_torch.engine.train import LossConfig, compute_losses
+
+    out = {name: spatial_case(rank, world, url, world, *args)
+           for name, args in cases.items()}
+    out["units"] = loss_units(rank, world, url, units)
+    if url is not None:
+        try:
+            compute_losses({"output_voxels": torch.zeros(1, 4, 8, 4, 20)},
+                           {"gt_occ": torch.zeros(1, 16, 16, 8)},
+                           LossConfig(voxel_lovasz=1.0, voxel_ohem=1.0,
+                                      voxel_dice=1.0, voxel_lga=1.0))
+        except ValueError as exc:
+            out["refusal"] = str(exc)
     return out
