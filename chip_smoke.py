@@ -189,10 +189,23 @@ Phases, one line each; any failure raises, so the script exits nonzero:
    ``create_data semantickitti`` (scales 1_1 and 1_2 of one packed frame)
    and ``flops_table`` on the card (its total equals phase 10's eval
    ``--flops`` count).
+16. K3 with bf16 tables at the highres slice's own plan (the quartered
+   grid on the slice tool's frame) against its plain version, then the
+   measurement tools, each as ``python -m
+   stereoscene_torch.tools.<tool>`` in a process of its own, so that its
+   numbers do not depend on the phases before it: ``bench_train`` at
+   B = 1 (5 timed bf16 steps with backbone checkpointing) and at B = 2
+   with ``--bev-cp``, ``highres_slice --shards 4`` (one card's quarter of
+   the highres grid, [64, 256, 32]) forward in bf16 and with ``--train``
+   (3 timed steps); each JSON line printed, with finite losses,
+   ``step_ms`` > 0, 0 < ``mfu`` < 1 on the H100, the slice's grid and
+   every peak under the card's memory; each tool's launches (K1 and P1,
+   and K3 in the slice's forward), which it counts from its first step
+   and prints on its stderr.
 
 Then one JSON line with each kernel (its launches in the serving, bf16
 training, eval, train CLI, data-parallel, optional-branch, phase 12b /
-12c, phase 13, phase 14 and phase 15 runs, each
+12c, phase 13, phase 14, phase 15 and phase 16 runs, each
 counted from 0 just
 before its run, its
 error, its times and its bound from phases 2-4c; the
@@ -212,14 +225,17 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
 
+from stereoscene_torch.tools import _frames
+from stereoscene_torch.tools._frames import BASELINE, FX
+
 SEED = 0
-FX, BASELINE = 707.0, 0.54  # bench.py:55-82 flagship calibration
 N_REQUESTS = 3
 N_TRAIN_STEPS = 6
 N_EVAL_FRAMES = 4
@@ -269,6 +285,20 @@ K4_SHAPES = {"hourglass conv2": ((64, 56, 24, 80, 64), 4),
 HIGHRES_CONFIG = "stereoscene_highres.py"
 HIGHRES_STEPS = 3
 SP_TIMEOUT_S = 600.0
+# phase 16: the measurement tools, each in a process of its own, and the
+# kernels each run must launch
+TOOL_RUNS = (
+    ("bench_train", ("--batches", "1", "--iters", "5"),
+     ("gwc_warp", "dcn_gather")),
+    ("bench_train", ("--batches", "2", "--bev-cp", "--iters", "5"),
+     ("gwc_warp", "dcn_gather")),
+    ("highres_slice", ("--shards", "4"),
+     ("gwc_warp", "dcn_gather", "lift_splat_fused")),
+    ("highres_slice", ("--shards", "4", "--train", "--iters", "3"),
+     ("gwc_warp", "dcn_gather")),
+)
+TOOL_TIMEOUT_S = 300.0
+SLICE_GRID = [64, 256, 32]  # the highres grid's X cut to 1/4
 
 
 def cuda_ms(fn, iters: int = 20, reps: int = 1) -> float:
@@ -331,31 +361,6 @@ def check_close(name, got, want, atol, rtol) -> float:
             f"{name}: kernel disagrees with plain: shape {tuple(got.shape)} "
             f"vs {tuple(want.shape)}, max abs err {float(err.max()):.3e}")
     return float(err.max())
-
-
-def flagship_batch(cfg, seed: int, device) -> dict:
-    """One stereo frame at the flagship calibration (bench.py:55-82) with
-    seeded random images, as the JAX package's batch dict."""
-    gen = torch.Generator().manual_seed(seed)
-    h, w = cfg.input_size
-    intrin = torch.zeros(1, 2, 3, 4)
-    intrin[..., 0, 0] = FX
-    intrin[..., 1, 1] = FX
-    intrin[..., 0, 2] = w / 2.0
-    intrin[..., 1, 2] = h / 2.0
-    intrin[..., 2, 2] = 1.0
-    rot = torch.tensor([[0.0, 0, 1], [-1, 0, 0], [0, -1, 0]])
-    batch = {
-        "imgs": torch.randn(1, 2, h, w, 3, generator=gen),
-        "rots": rot.expand(1, 2, 3, 3).clone(),
-        "trans": torch.zeros(1, 2, 3),
-        "intrins": intrin,
-        "post_rots": torch.eye(3).expand(1, 2, 3, 3).clone(),
-        "post_trans": torch.zeros(1, 2, 3),
-        "bda": torch.eye(3).expand(1, 3, 3).clone(),
-        "calib": torch.full((1,), FX * BASELINE),
-    }
-    return {k: v.to(device) for k, v in batch.items()}
 
 
 def phase_gwc(cfg, dev, gwc) -> dict:
@@ -1490,7 +1495,7 @@ def phase_serve(model, cfg, dev, build, card: str,
         model.pts_bbox_head.register_forward_hook(
             lambda _m, _i, out: finite.append(torch.isfinite(out).all())),
     ]
-    batches = [flagship_batch(cfg, SEED + 10 + i, dev)
+    batches = [_frames.frame(cfg, dev, SEED + 10 + i)
                for i in range(requests + 1)]
     stages, frames = [], []
     build.launch_counts.clear()
@@ -1540,7 +1545,7 @@ def train_batch(cfg, seed: int, dev) -> dict:
     [0, 20) with 10% ignore (255), and a sparse LiDAR-like gt_depth
     [1, 1, 384, 1280] (7% of pixels, depths in the model's range)."""
     gen = torch.Generator().manual_seed(seed)
-    batch = flagship_batch(cfg, seed, "cpu")
+    batch = _frames.frame(cfg, "cpu", seed)
     occ = torch.randint(0, 20, (1, 256, 256, 32), generator=gen)
     ignore = torch.rand(occ.shape, generator=gen) < 0.1
     batch["gt_occ"] = torch.where(ignore, 255, occ).to(torch.int32)
@@ -2834,7 +2839,7 @@ def highres_batch(cfg, label_shape, b: int, seed: int, dev) -> dict:
     labels [b, *label_shape] in [0, 20) with 10% ignore (255), and a
     sparse LiDAR-like gt_depth [b, 1, H, W] (7% of pixels)."""
     gen = torch.Generator().manual_seed(seed)
-    frames = [flagship_batch(cfg, seed + i, "cpu") for i in range(b)]
+    frames = [_frames.frame(cfg, "cpu", seed + i) for i in range(b)]
     batch = {k: torch.cat([f[k] for f in frames]) for k in frames[0]}
     occ = torch.randint(0, 20, (b,) + tuple(label_shape), generator=gen)
     ignore = torch.rand(occ.shape, generator=gen) < 0.1
@@ -3283,7 +3288,7 @@ def phase_depths(dev, build, card: str) -> dict:
 
     t_start = time.perf_counter()
     launches = collections.Counter()
-    frame = flagship_batch(DetectorConfig(), SEED + 50, dev)
+    frame = _frames.frame(DetectorConfig(), dev, SEED + 50)
     evals = {}
     for depth in DEPTHS:
         torch.backends.cudnn.allow_tf32 = False
@@ -3605,6 +3610,123 @@ def phase_dataset_tools(dev, card: str, tmp: str, tree: tuple,
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def phase_slice_splat(dev) -> None:
+    """K3 at the highres slice's own plan, as ``highres_slice --shards 4``
+    runs it: ``slice_config`` of the highres config on the tool's frame
+    (``_frames.slice_frame``), with bf16 tables (the slice's forward is
+    serving's bf16), against its plain version at phase 3's tolerance,
+    bitwise equal on a second launch."""
+    from stereoscene_torch.config import Config
+    from stereoscene_torch.models.detector import (
+        BEVDepthOccupancy,
+        DetectorConfig,
+    )
+    from stereoscene_torch.ops import voxel_pool
+    from stereoscene_torch.tools import highres_slice
+
+    full = DetectorConfig.from_config(Config.fromfile(highres_slice.HIGHRES))
+    cfg = highres_slice.slice_config(full, 4)
+    model = BEVDepthOccupancy(cfg, device=dev)
+    cpu_batch = {k: v for k, v in _frames.slice_frame(cfg, "cpu").items()
+                 if not k.startswith("gt_")}
+    x = splat_inputs(model, cpu_batch, dev)
+    t16 = (x["dp"].bfloat16(), x["feat"].bfloat16())
+    order, bounds, group, nvox = x["order"], x["bounds"], x["group"], x["nvox"]
+
+    def fused(use_kernel):
+        return voxel_pool.lift_splat_fused(*t16, order, bounds, group, nvox,
+                                           use_kernel=use_kernel)
+
+    want = fused(False)
+    got = fused(True)
+    err = check_close("phase 16 splat fused bf16 (highres slice)", got,
+                      want, 1e-4 * float(want.abs().max()), 0.0)
+    if not torch.equal(got, fused(True)):
+        raise AssertionError("phase 16 splat fused bf16: two launches "
+                             "differ")
+    ms, plain = cuda_ms(lambda: fused(True)), cuda_ms(lambda: fused(False))
+    live = int((order < t16[0].numel()).sum())
+    lim = bound(nbytes(*t16, order, bounds, want), 2 * live * want.shape[1],
+                torch.float32)
+    flagship_points = int((model.compute_ranks(_frames.frame(cfg, "cpu"))[0]
+                           < nvox).sum())
+    print(f"phase 16 K3 lift_splat_fused at the slice's plan (grid "
+          f"{cfg.grid_shape}, fx = W/2): group-{group} plan of {len(order)} "
+          f"rows, {live} live, {int((x['points'] < nvox).sum())} in-bounds "
+          f"points ({flagship_points} at the flagship calibration) -> "
+          f"[{nvox}, {t16[1].shape[1]}]; bf16 tables: max abs err "
+          f"{err:.3e} (max|ref| {float(want.abs().max()):.3e}), two "
+          f"launches bitwise equal; median of 20: kernel {ms:.4f} ms plain "
+          f"{plain:.4f} ms bound {lim['bound_ms']:.4f} ms "
+          f"({lim['bound_by']}, the kernel at {lim['bound_ms'] / ms:.1%} of "
+          f"it)", flush=True)
+
+
+def phase_tools(dev, card: str) -> dict:
+    """Phase 16: K3 at the slice's plan (``phase_slice_splat``), then the
+    port's measurement tools on the card, each run as
+    ``python -m stereoscene_torch.tools.<tool>`` in a process of its own
+    (so its numbers do not depend on what ran before it in this one):
+    ``bench_train`` at B = 1 and at B = 2 with ``--bev-cp``,
+    ``highres_slice --shards 4`` forward and ``--train``. Each JSON line
+    must hold finite losses (``value``), ``step_ms`` > 0, 0 < ``mfu`` < 1
+    on a card the tool knows the peak of (null elsewhere), the slice's
+    grid ``SLICE_GRID`` and peaks under the card's memory; each run must
+    launch its kernels (``TOOL_RUNS``). Returns the runs' launches, which
+    each tool counts from its first step or request on (``# launches`` on
+    its stderr)."""
+    from stereoscene_torch.tools import bench_train
+
+    t_start = time.perf_counter()
+    phase_slice_splat(dev)
+    torch.cuda.empty_cache()
+    total_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    known = torch.cuda.get_device_name(dev) in bench_train.PEAK_BF16
+    root = os.path.dirname(os.path.abspath(__file__))
+    launches = collections.Counter()
+    for tool, argv, needs in TOOL_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"stereoscene_torch.tools.{tool}",
+             *argv], cwd=root, capture_output=True, text=True,
+            timeout=TOOL_TIMEOUT_S)
+        name = f"phase 16 {tool} {' '.join(argv)}"
+        if proc.returncode != 0:
+            raise AssertionError(f"{name}: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-4000:]}")
+        records = [json.loads(line) for line in proc.stdout.splitlines()
+                   if line.startswith("{")]
+        counts = [json.loads(line[len("# launches "):])
+                  for line in proc.stderr.splitlines()
+                  if line.startswith("# launches ")]
+        run = counts[0] if len(counts) == 1 else {}
+        bad = len(records) != 1 or any(run.get(k, 0) < 1 for k in needs)
+        for r in records:
+            if tool == "bench_train":
+                mfu = r["mfu"]
+                mfu_ok = (mfu is not None and 0 < mfu < 1 if known
+                          else mfu is None)
+                bad |= (not mfu_ok or not math.isfinite(r["loss"])
+                        or r["step_ms"] <= 0
+                        or not r["peak_gib"] < total_gib)
+            else:
+                bad |= (not math.isfinite(r["value"]) or r["step_ms"] <= 0
+                        or r["grid"] != SLICE_GRID
+                        or not r["hbm_peak_gb"] < r["hbm_limit_gb"]
+                        or abs(r["hbm_limit_gb"] - total_gib) > 1e-6)
+        if bad:
+            raise AssertionError(f"{name}: records {records}, launches "
+                                 f"{dict(run)}\n{proc.stderr[-2000:]}")
+        launches.update(run)
+        notes = [line for line in proc.stderr.splitlines()
+                 if line.startswith("# ") and "launches" not in line]
+        print(f"{name} on {card} ({time.perf_counter() - t0:.1f} s; "
+              f"{'; '.join(n[2:] for n in notes)}; launches {dict(run)}): "
+              f"{json.dumps(records[0])}", flush=True)
+    print(f"phase 16 {time.perf_counter() - t_start:.1f} s", flush=True)
+    return dict(launches)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none found")
@@ -3647,13 +3769,13 @@ def main() -> None:
 
     model = BEVDepthOccupancy(cfg)
     seeded_init_(model, SEED)
-    k3, k2 = phase_splat(model, flagship_batch(cfg, SEED, "cpu"), dev,
+    k3, k2 = phase_splat(model, _frames.frame(cfg, "cpu", SEED), dev,
                          voxel_pool)
     k4 = phase_conv3d(dev, conv3d)
     p1 = phase_dcn(model, dev, deform_conv)
     p2 = phase_take_rows(dev, gather)
 
-    phase_fp32_forward(model, flagship_batch(cfg, SEED, dev), _build)
+    phase_fp32_forward(model, _frames.frame(cfg, dev, SEED), _build)
     serving, _ = phase_serve(model, cfg, dev, _build, card)
     del model
     torch.cuda.empty_cache()
@@ -3686,6 +3808,8 @@ def main() -> None:
         phase_native(card, tree)
         phase_dataset_tools(dev, card, tmp, tree, eval_gflop)
         print(f"phase 15 {time.perf_counter() - t15:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    tools = phase_tools(dev, card)
     for path, counts, needs in (
             ("serving", serving, ("gwc_warp", "dcn_gather",
                                   "lift_splat_fused")),
@@ -3704,7 +3828,9 @@ def main() -> None:
             ("ResNet3D depths", depths, ("gwc_warp", "dcn_gather",
                                          "conv3d_s1", "lift_splat_fused")),
             ("sharded branches", branches, ("gwc_warp", "dcn_gather",
-                                            "conv3d_s1"))):
+                                            "conv3d_s1")),
+            ("measurement tools", tools, ("gwc_warp", "dcn_gather",
+                                          "lift_splat_fused"))):
         for name in needs:
             if counts.get(name, 0) < 1:
                 raise AssertionError(f"{name} never launched in {path}")
@@ -3729,7 +3855,7 @@ def main() -> None:
                             for run in (serving, training, evaluation,
                                         train_cli, data_parallel, optional,
                                         variants, nuscenes, highres, depths,
-                                        branches))
+                                        branches, tools))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

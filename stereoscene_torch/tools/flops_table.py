@@ -33,34 +33,12 @@ import torch
 from ..config import Config
 from ..engine.flops import count_flops, param_count
 from ..models.detector import BEVDepthOccupancy, DetectorConfig
+from ._frames import frame
 
 FLAGSHIP = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs", "stereoscene_semantickitti.py")
-FX, BASELINE = 707.0, 0.54  # the flagship calibration (bench.py:55-82)
 STAGES = ("image encoder (both eyes)",
           "view transform (stereo+mono+MIE+splat)", "bev encoder + head")
-
-
-def frame(cfg: DetectorConfig, device, seed: int = 0) -> Dict:
-    """One stereo frame at the flagship calibration with seeded images."""
-    gen = torch.Generator().manual_seed(seed)
-    h, w = cfg.input_size
-    intrin = torch.zeros(1, 2, 3, 4)
-    intrin[..., 0, 0] = intrin[..., 1, 1] = FX
-    intrin[..., 0, 2], intrin[..., 1, 2] = w / 2.0, h / 2.0
-    intrin[..., 2, 2] = 1.0
-    rot = torch.tensor([[0.0, 0, 1], [-1, 0, 0], [0, -1, 0]])
-    batch = {
-        "imgs": torch.randn(1, 2, h, w, 3, generator=gen),
-        "rots": rot.expand(1, 2, 3, 3).clone(),
-        "trans": torch.zeros(1, 2, 3),
-        "intrins": intrin,
-        "post_rots": torch.eye(3).expand(1, 2, 3, 3).clone(),
-        "post_trans": torch.zeros(1, 2, 3),
-        "bda": torch.eye(3).expand(1, 3, 3).clone(),
-        "calib": torch.full((1,), FX * BASELINE),
-    }
-    return {k: v.to(device) for k, v in batch.items()}
 
 
 @torch.no_grad()

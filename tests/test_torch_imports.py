@@ -42,6 +42,13 @@ def test_the_guard_sees_every_form():
                                          ("stereoscene_tpu", 5)]
 
 
+def test_the_guard_covers_the_measurement_tools():
+    tools = {"stereoscene_torch/tools/bench_train.py",
+             "stereoscene_torch/tools/highres_slice.py",
+             "stereoscene_torch/tools/_frames.py"}
+    assert tools <= set(FILES)
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_port_file_imports_no_jax(path):
     source = (ROOT / path).read_text()
