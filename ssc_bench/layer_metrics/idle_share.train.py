@@ -1,0 +1,9 @@
+"""idle_share.train: the share of the traced window in which no device
+operation ran, in %."""
+
+
+def read(ctx):
+    t = ctx["trace"]
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)

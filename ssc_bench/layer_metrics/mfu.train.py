@@ -1,0 +1,19 @@
+"""mfu.train: three times the counted FLOPs of one forward of the plain
+reference a frame (the forward and a backward of twice its work; the
+checkpointed blocks' recompute is not counted), times the frames of the
+window's steps, over the window's seconds and the card's dense bf16 peak,
+in %."""
+
+import torch
+
+from ssc_bench.flops import forward_flops
+from ssc_bench.roofline import peaks
+
+
+def read(ctx):
+    peak = peaks(torch.cuda.get_device_name(ctx["device"]))
+    if peak is None or not ctx["frames"]:
+        return None
+    flops = forward_flops(ctx["cell"].config["model"], 1)
+    return 100.0 * 3 * flops * ctx["frames"] / ctx["window_s"] \
+        / peak["bf16_flop_per_s"]
