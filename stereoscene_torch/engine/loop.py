@@ -31,6 +31,7 @@ Data parallel (``parallel``), each rank with its shard of the index:
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import signal
@@ -42,9 +43,13 @@ import torch
 
 from .. import metrics as ssc_metrics
 from .. import parallel
+from ..utils.spans import span
 from ..utils.tb_writer import TensorBoardWriter
 from .checkpoint import CheckpointManager
 from .train import TrainState
+
+
+_END = object()  # the end of a loader's epoch
 
 
 class TransferWeightHook:
@@ -125,7 +130,8 @@ def run_training(
     ``step_time_s``, the step's wall time between two device
     synchronisations, to the logs; ``trace_dir`` gets a ``torch.profiler``
     chrome trace (``trace.json``) of the steps from ``trace_steps[0]`` up to
-    ``trace_steps[1]``.
+    ``trace_steps[1]``, with the program's ``utils.spans`` ranges: each
+    step's ``stereoscene.load``, its phases and their stages.
 
     Preemption: ``save_interval_steps > 0`` adds background saves every N
     steps, SIGTERM makes a synchronous save and returns, and a run that
@@ -173,12 +179,10 @@ def run_training(
         global_it = 0
         for epoch in range(start_epoch, max_epochs):
             t_epoch = time.time()
-            for it, batch in enumerate(train_loader):
-                if it == steps_per_epoch:
-                    break  # this rank's shard is longer than another's
-                if epoch == start_epoch and it < skip_iters:
-                    continue  # mid-epoch resume: realign the data cursor
-                if trace_dir is not None and global_it == trace_steps[0]:
+            batches = iter(train_loader)
+            for it in itertools.count():
+                if (trace_dir is not None and tracer is None
+                        and global_it == trace_steps[0]):
                     os.makedirs(trace_dir, exist_ok=True)
                     activities = [torch.profiler.ProfilerActivity.CPU]
                     if device.type == "cuda":
@@ -190,9 +194,15 @@ def run_training(
                     tracer.export_chrome_trace(
                         os.path.join(trace_dir, "trace.json"))
                     tracer = None
+                with span("stereoscene.load"):
+                    batch = next(batches, _END)
+                    if batch is _END or it == steps_per_epoch:
+                        break  # the loader's end or the ranks' shortest
+                    if epoch == start_epoch and it < skip_iters:
+                        continue  # mid-epoch resume: realign the data cursor
+                    batch = to_device(batch, device)
                 global_it += 1
 
-                batch = to_device(batch, device)
                 generator = step_generator(seed, state.step, device)
                 if profile:
                     sync()

@@ -70,6 +70,7 @@ from ..losses.streaming import streaming_voxel_losses
 from ..models.crp3d import crp_relation_loss
 from ..ops.resize import resize_trilinear
 from ..parallel import all_sum, data_group, reduce_gradients, spatial
+from ..utils.spans import span
 
 
 def step_lr_schedule(
@@ -375,15 +376,22 @@ def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
     model = state.model
     model.train()
     params = [p for _, p in state.trainable]
-    with bf16_params(model) if bf16 else contextlib.nullcontext():
-        inputs = dict(batch, imgs=batch["imgs"].bfloat16()) if bf16 \
-            else batch
-        outputs = model(inputs, use_kernel=use_kernel, generator=generator)
-        losses = compute_losses(outputs, batch, loss_cfg)
-        total = sum(losses.values())
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
+    with contextlib.ExitStack() as copies:
+        # the bf16 copies are made in the forward's span and stand until
+        # the backward is done
+        with span("stereoscene.forward"):
+            if bf16:
+                copies.enter_context(bf16_params(model))
+            inputs = dict(batch, imgs=batch["imgs"].bfloat16()) if bf16 \
+                else batch
+            outputs = model(inputs, use_kernel=use_kernel,
+                            generator=generator)
+            losses = compute_losses(outputs, batch, loss_cfg)
+            total = sum(losses.values())
+        with span("stereoscene.backward"):
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
     return total.detach(), {k: v.detach() for k, v in losses.items()}, grads
 
 
@@ -436,11 +444,12 @@ def make_train_step(loss_cfg: LossConfig, bf16: bool = False,
     def train_step(state: TrainState, batch, generator=None):
         total, losses, grads = loss_and_grads(
             state, batch, loss_cfg, bf16, use_kernel, generator)
-        grads = reduce_gradients(grads)
-        logs = dict(losses, loss_total=total)
-        if debug_grads:
-            logs.update(grad_diagnostics(grads))
-        apply_gradients(state, grads)
+        with span("stereoscene.optimizer"):
+            grads = reduce_gradients(grads)
+            logs = dict(losses, loss_total=total)
+            if debug_grads:
+                logs.update(grad_diagnostics(grads))
+            apply_gradients(state, grads)
         return state, logs
 
     return train_step

@@ -61,6 +61,7 @@ from ..data.augment import grid_mask
 from ..ops.resize import resize_trilinear
 from ..ops.splat_plan import SplatPlanCache
 from ..parallel import spatial
+from ..utils.spans import span
 from .depth_net import BasicBlock2d
 from .efficientnet import CustomEfficientNet
 from .layers import checkpoint_region, remat
@@ -223,14 +224,15 @@ class BEVDepthOccupancy(nn.Module):
         """imgs [B, 2, H, W, 3] -> (left, right) [B, C, fH, fW]. In
         training mode with ``use_grid_mask`` the images are grid-masked
         first, one draw per image from ``generator``."""
-        b = imgs.shape[0]
-        flat = imgs.transpose(0, 1).reshape((2 * b,) + imgs.shape[2:])
-        flat = flat.permute(0, 3, 1, 2)
-        if self.cfg.use_grid_mask and self.training:
-            flat = grid_mask(flat, generator, groups=2)
-        feats = self.img_backbone(flat, generator, groups=2)
-        neck = self.img_neck(feats)
-        return neck[:b], neck[b:]
+        with span("stereoscene.images"):
+            b = imgs.shape[0]
+            flat = imgs.transpose(0, 1).reshape((2 * b,) + imgs.shape[2:])
+            flat = flat.permute(0, 3, 1, 2)
+            if self.cfg.use_grid_mask and self.training:
+                flat = grid_mask(flat, generator, groups=2)
+            feats = self.img_backbone(flat, generator, groups=2)
+            neck = self.img_neck(feats)
+            return neck[:b], neck[b:]
 
     # ---- geometry: voxel ranks of the LEFT camera's frustum ----
     def compute_ranks(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -259,28 +261,30 @@ class BEVDepthOccupancy(nn.Module):
         """-> (voxel features [B, C, X, Y, Z], depth_prob [B, D, fH, fW]);
         the splat follows the batch's plan (``attach_plan``) or, without
         one, the dynamic ranks of ``compute_ranks``."""
-        mlp = geometry.get_mlp_input(
-            batch["rots"], batch["trans"], batch["intrins"],
-            batch["post_rots"], batch["post_trans"], batch["bda"],
-        ).to(feat_left.dtype)
-        if "splat_order" in batch:
-            plan = (batch["splat_order"], batch["splat_ranks"],
-                    batch["splat_bounds"])
-        else:
-            plan = self.compute_ranks(batch)
-        vt = self.img_view_transformer
-        args = (feat_left, feat_right, mlp[:, 0], mlp[:, 1], batch["calib"],
-                plan, use_kernel)
-        # bev_with_cp (detector.py:174-196 of the JAX package: nn.remat of
-        # the view transformer, the voxel encoder and its neck) acts in
-        # training under grad
-        if not (self.cfg.bev_with_cp and self.training
-                and torch.is_grad_enabled()):
-            return vt(*args, generator)
-        # the dropout mask is drawn before the region, so the recompute
-        # sees it (the generator would give another)
-        return checkpoint_region(vt, vt, *args, None,
-                                 vt.depth_net.aspp_mask(feat_left, generator))
+        with span("stereoscene.view"):
+            mlp = geometry.get_mlp_input(
+                batch["rots"], batch["trans"], batch["intrins"],
+                batch["post_rots"], batch["post_trans"], batch["bda"],
+            ).to(feat_left.dtype)
+            if "splat_order" in batch:
+                plan = (batch["splat_order"], batch["splat_ranks"],
+                        batch["splat_bounds"])
+            else:
+                plan = self.compute_ranks(batch)
+            vt = self.img_view_transformer
+            args = (feat_left, feat_right, mlp[:, 0], mlp[:, 1],
+                    batch["calib"], plan, use_kernel)
+            # bev_with_cp (detector.py:174-196 of the JAX package: nn.remat
+            # of the view transformer, the voxel encoder and its neck) acts
+            # in training under grad
+            if not (self.cfg.bev_with_cp and self.training
+                    and torch.is_grad_enabled()):
+                return vt(*args, generator)
+            # the dropout mask is drawn before the region, so the recompute
+            # sees it (the generator would give another)
+            return checkpoint_region(
+                vt, vt, *args, None,
+                vt.depth_net.aspp_mask(feat_left, generator))
 
     def check_sharding(self) -> None:
         """Raise, by name, where this model cannot run on the space group's
@@ -301,15 +305,16 @@ class BEVDepthOccupancy(nn.Module):
         or None, CRP relation logits or None); the point branch runs where
         ``points`` are given."""
         cp = self.cfg.bev_with_cp
-        outs = remat(cp, self.img_bev_encoder_backbone, voxel_feat)
-        crp_logits = points_out = None
-        if self.cfg.crp3d:
-            outs, crp_logits = outs
-        fused = remat(cp, self.img_bev_encoder_neck, outs)
-        if self.cfg.supervise_points and points is not None:
-            points_out = self.pts_bbox_head.forward_points(
-                fused, points, img_feats, points_uv)
-        return self.pts_bbox_head(fused), points_out, crp_logits
+        with span("stereoscene.bev"):
+            outs = remat(cp, self.img_bev_encoder_backbone, voxel_feat)
+            crp_logits = points_out = None
+            if self.cfg.crp3d:
+                outs, crp_logits = outs
+            fused = remat(cp, self.img_bev_encoder_neck, outs)
+            if self.cfg.supervise_points and points is not None:
+                points_out = self.pts_bbox_head.forward_points(
+                    fused, points, img_feats, points_uv)
+            return self.pts_bbox_head(fused), points_out, crp_logits
 
     def _normalized_points(self, batch):
         """points_occ ego xyz -> [-1, 1]^3 grid coordinates for the point
@@ -385,6 +390,9 @@ class BEVDepthOccupancy(nn.Module):
               use_kernel=None) -> torch.Tensor:
         """Class map [B, *label_shape] (int64): fp32 logits upsampled
         trilinearly to the label grid, then argmax (bench.py:195-200)."""
-        logits = self.forward(batch, use_kernel)["output_voxels"].float()
-        return resize_trilinear(logits, self.label_shape).argmax(-1)
+        with span("stereoscene.infer"):
+            logits = self.forward(batch, use_kernel)["output_voxels"]
+            with span("stereoscene.classmap"):
+                return resize_trilinear(logits.float(),
+                                        self.label_shape).argmax(-1)
 

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.voxel_pool import lift_splat, lift_splat_static
+from ..utils.spans import span
 from .depth_net import DepthNet
 from .layers import remat
 from .mie import VolumeInteraction
@@ -56,24 +57,30 @@ class ViewTransformerLiftSplatShootVoxel(nn.Module):
         ``generator`` (or a mask drawn before, ``aspp_mask``) to the
         DepthNet's dropout."""
         self.depth_net.check_camera_width(mlp_left)
-        stereo = self.stereo_volume_net(feat_left, feat_right, mlp_left,
-                                        mlp_right, calib, use_kernel)
-        dn = self.depth_net(feat_left, mlp_left, generator, use_kernel,
-                            aspp_mask)
-        d = self.num_depth
-        lss_prob = torch.softmax(dn[:, :d].float(), dim=1).to(feat_left.dtype)
-        img_feat = dn[:, d:d + self.numC_Trans]
-        fused_prob = remat(self.with_cp, self.volume_interaction,
-                           stereo["single_channel"], lss_prob)
-        feat = img_feat.permute(0, 2, 3, 1)
-        if isinstance(plan, torch.Tensor):
-            bev = lift_splat(fused_prob.float(), feat.float(), plan,
-                             self.grid_shape)
-        else:  # K3 takes bf16 tables and widens them exactly
-            order, ranks_sorted, bounds = plan
-            bev = lift_splat_static(
-                fused_prob, feat, order, ranks_sorted,
-                self.grid_shape, group=self.splat_group, bounds=bounds,
-                use_kernel=use_kernel)
-        # [B, X, Y, Z, C] -> [B, C, X, Y, Z] (a channels-last-3d view)
-        return bev.to(feat_left.dtype).permute(0, 4, 1, 2, 3), fused_prob
+        with span("stereoscene.view.stereo"):
+            stereo = self.stereo_volume_net(feat_left, feat_right, mlp_left,
+                                            mlp_right, calib, use_kernel)
+        with span("stereoscene.view.depth"):
+            dn = self.depth_net(feat_left, mlp_left, generator, use_kernel,
+                                aspp_mask)
+            d = self.num_depth
+            lss_prob = torch.softmax(dn[:, :d].float(),
+                                     dim=1).to(feat_left.dtype)
+            img_feat = dn[:, d:d + self.numC_Trans]
+        with span("stereoscene.view.mie"):
+            fused_prob = remat(self.with_cp, self.volume_interaction,
+                               stereo["single_channel"], lss_prob)
+        with span("stereoscene.view.splat"):
+            feat = img_feat.permute(0, 2, 3, 1)
+            if isinstance(plan, torch.Tensor):
+                bev = lift_splat(fused_prob.float(), feat.float(), plan,
+                                 self.grid_shape)
+            else:  # K3 takes bf16 tables and widens them exactly
+                order, ranks_sorted, bounds = plan
+                bev = lift_splat_static(
+                    fused_prob, feat, order, ranks_sorted,
+                    self.grid_shape, group=self.splat_group, bounds=bounds,
+                    use_kernel=use_kernel)
+            # [B, X, Y, Z, C] -> [B, C, X, Y, Z] (a channels-last-3d view)
+            bev = bev.to(feat_left.dtype).permute(0, 4, 1, 2, 3)
+        return bev, fused_prob

@@ -27,6 +27,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.spans import span
+
 # Plan padding constants shared with the JAX package's plans (its Pallas
 # splat tiled output voxels by TILE and plan rows by CHUNK); kept so plans
 # are array-identical across the two packages.
@@ -146,27 +148,29 @@ class SplatPlanCache:
             self.hits += 1
             return hit
         self.misses += 1
-        ranks = self.model.compute_ranks(
-            {k: torch.from_numpy(sample[k]) for k in GEOMETRY_KEYS}
-        )[0].numpy()
-        if self.p_pad is None:
-            self.p_pad = len(
-                build_plan(ranks, self.num_voxels, group=self.group)[0])
-        order, rs = build_plan(ranks, self.num_voxels, self.p_pad,
-                               group=self.group)
-        hit = (order, rs, plan_bounds(rs, self.num_voxels, self.group))
+        with span("stereoscene.plan.build"):
+            ranks = self.model.compute_ranks(
+                {k: torch.from_numpy(sample[k]) for k in GEOMETRY_KEYS}
+            )[0].numpy()
+            if self.p_pad is None:
+                self.p_pad = len(
+                    build_plan(ranks, self.num_voxels, group=self.group)[0])
+            order, rs = build_plan(ranks, self.num_voxels, self.p_pad,
+                                   group=self.group)
+            hit = (order, rs, plan_bounds(rs, self.num_voxels, self.group))
         self._cache[key] = hit
         return hit
 
     def attach(self, batch: Dict[str, torch.Tensor]) -> Dict:
-        device = batch["rots"].device
-        geo = {k: torch.as_tensor(batch[k]).detach().to("cpu", torch.float32)
-               .numpy() for k in GEOMETRY_KEYS}
-        plans = [self._plan({k: v[i:i + 1] for k, v in geo.items()})
-                 for i in range(geo["rots"].shape[0])]
-        out = dict(batch)
-        for j, name in enumerate(("splat_order", "splat_ranks",
-                                  "splat_bounds")):
-            out[name] = torch.from_numpy(
-                np.stack([p[j] for p in plans])).to(device)
-        return out
+        with span("stereoscene.plan"):
+            device = batch["rots"].device
+            geo = {k: torch.as_tensor(batch[k]).detach()
+                   .to("cpu", torch.float32).numpy() for k in GEOMETRY_KEYS}
+            plans = [self._plan({k: v[i:i + 1] for k, v in geo.items()})
+                     for i in range(geo["rots"].shape[0])]
+            out = dict(batch)
+            for j, name in enumerate(("splat_order", "splat_ranks",
+                                      "splat_bounds")):
+                out[name] = torch.from_numpy(
+                    np.stack([p[j] for p in plans])).to(device)
+            return out

@@ -1,54 +1,67 @@
-"""Where the time of one bf16 serving request of the PyTorch port goes.
+"""Where the time of a bf16 serving request of the PyTorch port goes, by
+the program's own spans.
 
-Builds the flagship ``stereoscene_torch`` detector (seeded random weights,
-bf16, kernels on), answers warm-up requests, then for ``--requests`` more:
+Builds the published SemanticKITTI detector of ``stereoscene_torch``
+(``configs/stereoscene_semantickitti.py``: 128x128x16 grid; seeded random
+weights, bf16, kernels on), answers warm-up requests on seeded frames at
+the flagship calibration (the first builds the splat plan), then traces
+``--requests`` more under ``torch.profiler`` and prints:
 
-- device milliseconds of each major module, from CUDA events recorded by
-  forward hooks (median over the requests);
-- a ``torch.profiler`` trace of the same requests: the kernels by device
-  time, and the device's busy share of the host wall time.
+- for each span the program opened (``stereoscene_torch.utils.spans``):
+  device ms a request of the operations launched inside it, the device's
+  idle ms a request while it was open, and its launches a request;
+- the kernels by device time, and the device's busy share of the window.
 
 Run from the repository root on a machine with a CUDA card:
 
     python tools/profile_torch_serving.py [--requests 3] [--out DIR]
 
-The full kernel table and the chrome trace go under ``--out``.
+The kernel table and the chrome trace, with the spans, go under ``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
-import statistics
 import subprocess
 import sys
-import time
 
 import torch
+from torch.profiler import record_function
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-from chip_smoke import flagship_batch  # noqa: E402
+from ssc_bench import program_spans  # noqa: E402
+from ssc_bench.trace import WINDOW, Trace  # noqa: E402
+from stereoscene_torch.config import Config  # noqa: E402
 from stereoscene_torch.models.detector import (  # noqa: E402
     BEVDepthOccupancy,
     DetectorConfig,
 )
+from stereoscene_torch.tools._frames import frame  # noqa: E402
+from stereoscene_torch.utils.spans import SPANS  # noqa: E402
 from stereoscene_torch.utils.weights import seeded_init_  # noqa: E402
 
-MODULES = (
-    "img_backbone", "img_neck",
-    "img_view_transformer.stereo_volume_net",
-    "img_view_transformer.stereo_volume_net.feature_withcam",
-    "img_view_transformer.depth_net",
-    "img_view_transformer.depth_net.depth_conv.3",  # ASPP
-    "img_view_transformer.depth_net.depth_conv.4",  # DCN
-    "img_view_transformer.volume_interaction",
-    "img_view_transformer.volume_interaction.lss2stereo",
-    "img_view_transformer.volume_interaction.stereo2lss",
-    "img_view_transformer", "img_bev_encoder_backbone",
-    "img_bev_encoder_neck", "pts_bbox_head",
-)
+CONFIG = os.path.join(ROOT, "stereoscene_torch", "configs",
+                      "stereoscene_semantickitti.py")
+
+
+def span_table(trace, requests: int) -> list:
+    """One row a span the trace holds: device ms, idle ms and launches a
+    request."""
+    ctx = {"trace": trace, "frames": requests}
+    rows = []
+    for name in SPANS:
+        device = program_spans.device_ms(ctx, (name,), "frames")
+        if device is not None:
+            rows.append({
+                "span": name, "device_ms": device,
+                "idle_ms": program_spans.idle_ms(ctx, (name,), "frames"),
+                "launches": program_spans.launches(ctx, (name,), "frames")})
+    return rows
 
 
 def main() -> None:
@@ -64,78 +77,52 @@ def main() -> None:
         check=True).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
     dev = torch.device("cuda", 0)
-    cfg = DetectorConfig(backbone_with_cp=False)
+    cfg = DetectorConfig.from_config(Config.fromfile(CONFIG))
     model = BEVDepthOccupancy(cfg)
     seeded_init_(model, 0)
     model.to(dev, torch.bfloat16)
 
-    spans = {name: [] for name in MODULES}
-    open_ev = {}
-
-    def pre(name):
-        def hook(*_):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            open_ev[name] = ev
-        return hook
-
-    def post(name):
-        def hook(*_):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            spans[name].append((open_ev.pop(name), ev))
-        return hook
-
-    for name in MODULES:
-        mod = model.get_submodule(name)
-        mod.register_forward_pre_hook(pre(name))
-        mod.register_forward_hook(post(name))
-
-    batches = [flagship_batch(cfg, 100 + i, dev)
+    batches = [frame(cfg, dev, seed=100 + i)
                for i in range(args.requests + 2)]
     for batch in batches[:2]:  # warm-up (plan build, cuDNN autotune)
         model.infer(batch)
     torch.cuda.synchronize()
-    for name in MODULES:
-        spans[name].clear()
 
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
+    trace = Trace()
+    with trace, record_function(WINDOW):
         for batch in batches[2:]:
             model.infer(batch)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.requests
-    module_ms = {name: statistics.median(a.elapsed_time(b) for a, b in ev)
-                 for name, ev in spans.items()}
+    wall_ms = trace.window_s * 1e3 / args.requests
+    busy_ms = trace.busy_s * 1e3 / args.requests
+    spans = span_table(trace, args.requests)
 
-    events = prof.key_averages()
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels = sorted((e for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=device_us, reverse=True)
-    busy_ms = sum(device_us(e) for e in kernels) / 1e3 / args.requests
-    table = events.table(sort_by="self_cuda_time_total", row_limit=60)
+    kernels = collections.defaultdict(lambda: [0.0, 0])
+    for op in trace.ops:
+        kernels[op.name][0] += (op.end - op.start) / 1e6 / args.requests
+        kernels[op.name][1] += 1
+    kernels = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     with open(os.path.join(args.out, "kernels.txt"), "w") as f:
-        f.write(table)
-    prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
+        for name, (ms, count) in kernels:
+            f.write(f"{ms:10.4f} ms/req x{count // args.requests:<5d} "
+                    f"{name}\n")
+    # Trace keeps the torch profiler it ran; its chrome trace shows the
+    # spans over the device's timeline
+    trace._prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
 
     print(f"card: {card}")
     print(f"host wall ms per request {wall_ms:.3f}; device busy ms per "
           f"request {busy_ms:.3f} (idle share "
-          f"{max(0.0, 1 - busy_ms / wall_ms):.3f})")
-    for name, ms in module_ms.items():
-        print(f"module {name}: {ms:.3f} ms")
-    for e in kernels[:25]:
-        print(f"kernel {device_us(e) / 1e3 / args.requests:9.3f} ms/req "
-              f"x{e.count // args.requests:<5d} {e.key[:110]}")
+          f"{1 - busy_ms / wall_ms:.3f})")
+    for row in spans:
+        print(f"span {row['span']:<26s} device {row['device_ms']:9.3f} ms "
+              f"idle {row['idle_ms']:9.3f} ms "
+              f"launches {row['launches']:8.1f}")
+    for name, (ms, count) in kernels[:25]:
+        print(f"kernel {ms:9.3f} ms/req x{count // args.requests:<5d} "
+              f"{name[:110]}")
     print(json.dumps({"card": card, "wall_ms": wall_ms, "busy_ms": busy_ms,
-                      "module_ms": module_ms}))
+                      "spans": spans}))
 
 
 if __name__ == "__main__":
