@@ -14,6 +14,11 @@ and with ``with_cp`` checkpoints each block with
 ``nn.remat``). The DropPath masks are drawn before a checkpointed block, so
 its recompute sees the same mask, and the recompute does not update the
 BatchNorm statistics a second time.
+
+Inference on a card replays one captured CUDA graph of the backbone's
+body in place of launching its ~2,300 small operations one by one
+(``CustomEfficientNet.forward``). The replay runs the kernels eager mode
+launches, the fp32 BatchNorm islands included.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.spans import span
 from .layers import BatchNorm, checkpoint_region, drop_path, keep_mask
 
 # Base (b0) table per stage: (kernel, out_channels, se_ratio, stride,
@@ -239,6 +245,32 @@ class EdgeResidual(InvertedResidual):
         return x + out
 
 
+class CudaGraphs:
+    """How ``CustomEfficientNet`` captures its eval body: a CUDA graph of
+    the current card, captured on a side stream into a private memory pool.
+    Tests put a stand-in with the same two methods in its place
+    (``GRAPHS``)."""
+
+    @staticmethod
+    def accepts(x: torch.Tensor) -> bool:
+        """True where ``x`` is on a card whose stream is not capturing."""
+        return x.is_cuda and not torch.cuda.is_current_stream_capturing()
+
+    @staticmethod
+    def capture(body):
+        """(graph, outputs) of ``body()`` captured without running it: the
+        outputs hold its results after each ``graph.replay()``. Only this
+        thread is barred from unsafe CUDA calls during the capture, so a
+        loader's threads may go on copying."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = body()
+        return graph, out
+
+
+GRAPHS = CudaGraphs
+
+
 class CustomEfficientNet(nn.Module):
     """Multi-output EfficientNet; [N, 3, H, W] -> list of feature maps."""
 
@@ -266,10 +298,49 @@ class CustomEfficientNet(nn.Module):
             layers.append(nn.Sequential(*blocks))
         layers.append(ConvBNAct(cin, head_ch, _HEAD[0], stride=_HEAD[2]))
         self.layers = nn.ModuleList(layers)
+        # the input key (shape, strides, dtype, device) last run, and once
+        # captured for it (graph, static input, static outputs)
+        self._graph_key = self._graph = None
 
     def forward(self, x, generator=None, groups: int = 1):
         """``generator`` seeds the DropPath masks in training mode; ``x``
-        stacks ``groups`` blocks of the batch (``layers.keep_mask``)."""
+        stacks ``groups`` blocks of the batch (``layers.keep_mask``).
+
+        Inference on a card (eval mode, no autograd, a stream that is not
+        already capturing) runs eagerly on the first call with an input
+        key (shape, strides, dtype, device), which warms up cuDNN and the
+        allocator; the second captures the body into a CUDA graph over a
+        static input buffer, and from then on each call copies ``x`` in and
+        replays the graph. A new key drops the graph, as does ``_apply``
+        (``.to``, ``.cuda``, ``.half``); ``load_state_dict`` copies in
+        place, so the graph reads the new weights. The returned maps then
+        live in the graph's pool and the next call overwrites them: use them
+        before calling again, as ``encode_images`` does, handing them
+        straight to the neck. Training, eval under autograd and the CPU
+        run the body eagerly."""
+        if self.training or torch.is_grad_enabled() or not GRAPHS.accepts(x):
+            return self._forward(x, generator, groups)
+        key = (x.shape, x.stride(), x.dtype, x.device)
+        if key != self._graph_key:
+            self._graph_key, self._graph = key, None
+            return self._forward(x, generator, groups)
+        if self._graph is None:
+            with span("stereoscene.images.capture"):
+                static_in = torch.empty_like(x)
+                graph, out = GRAPHS.capture(lambda: self._forward(static_in))
+            self._graph = graph, static_in, out
+        graph, static_in, out = self._graph
+        with span("stereoscene.images.replay"):
+            static_in.copy_(x)
+            graph.replay()
+        return list(out)
+
+    def _apply(self, *args, **kwargs):
+        # a graph reads the storage the parameters had when it was captured
+        self._graph_key = self._graph = None
+        return super()._apply(*args, **kwargs)
+
+    def _forward(self, x, generator=None, groups: int = 1):
         outs = []
         last = max(self.out_indices)
         for i, layer in enumerate(self.layers):

@@ -10,7 +10,9 @@ only switch.
 ``SPANS`` lists every name, each under its parent:
 
 - serving, once a frame: ``stereoscene.infer`` holds ``.plan`` (with
-  ``.plan.build`` on a plan-cache miss only), ``.images``, ``.view`` (with
+  ``.plan.build`` on a plan-cache miss only), ``.images`` (with
+  ``.images.replay`` where the image backbone replays its CUDA graph, and
+  ``.images.capture`` the one time it captures it), ``.view`` (with
   ``.view.stereo``, ``.view.depth``, ``.view.mie``, ``.view.splat``),
   ``.bev`` and ``.classmap``; the stage spans open in training too, and a
   checkpointed block's recompute opens them again inside the backward;
@@ -33,6 +35,8 @@ SPANS = (
     "stereoscene.plan",
     "stereoscene.plan.build",
     "stereoscene.images",
+    "stereoscene.images.capture",
+    "stereoscene.images.replay",
     "stereoscene.view",
     "stereoscene.view.stereo",
     "stereoscene.view.depth",

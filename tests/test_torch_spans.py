@@ -9,6 +9,10 @@ the tiny configuration:
   ``stereoscene.load`` span for every traced step;
 - with no profiler active an ``infer`` enters no ``record_function``,
   and its class map is bitwise the one it gives under the profiler;
+- with a stand-in for the image backbone's CUDA graphs, an ``infer``
+  opens ``stereoscene.images.capture`` the one time the backbone
+  captures and ``stereoscene.images.replay`` each time it replays, both
+  inside ``stereoscene.images``;
 - every name the package opens is in ``SPANS`` and none is one of the
   benchmark harness's ``ssc.*`` names.
 """
@@ -26,11 +30,13 @@ from stereoscene_torch.config import Config
 from stereoscene_torch.engine.loop import run_training, step_generator
 from stereoscene_torch.engine.train import (LossConfig, create_train_state,
                                             make_train_step)
+from stereoscene_torch.models import efficientnet
 from stereoscene_torch.models.detector import BEVDepthOccupancy, DetectorConfig
 from stereoscene_torch.ops.splat_plan import SplatPlanCache
 from stereoscene_torch.tools import _frames
 from stereoscene_torch.utils.spans import SPANS
 from stereoscene_torch.utils.weights import seeded_init_
+from tests.test_torch_backbone_graph import StandInGraphs
 from tests.test_torch_loop import _loader, _state, _train_step
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -128,6 +134,24 @@ def test_class_map_same_with_profiler_on_and_off(model, frame):
     off = model.infer(frame)
     on, _ = traced(lambda: model.infer(frame))
     assert torch.equal(off, on)
+
+
+def test_backbone_capture_and_replay_spans(model, frame, monkeypatch):
+    backend = StandInGraphs()
+    monkeypatch.setattr(efficientnet, "GRAPHS", backend)
+    want = model.infer(frame)  # eager: the backbone's first call
+    inner = ("stereoscene.images.capture", "stereoscene.images.replay")
+    for expect in (list(inner), ["stereoscene.images.replay"]):
+        got, spans = traced(lambda: model.infer(frame))
+        assert torch.equal(got, want)
+        assert [n for n, _, _ in spans if n in inner] == expect
+        images = [(s, e) for n, s, e in spans if n == "stereoscene.images"]
+        assert len(images) == 1
+        for n, s, e in spans:
+            if n in inner:
+                assert images[0][0] <= s <= e <= images[0][1], n
+    assert backend.calls == ["capture", "replay", "replay"]
+    model.float()  # drops the stand-in's graph
 
 
 def test_bf16_train_step_phase_spans():
