@@ -1,8 +1,11 @@
 """A cell as the benchmark defines it: ``BENCHMARK.json``'s entry for the
-workload, its configuration file, its traffic file and the readers of its
-per-layer metrics, each found by name.
+workload, its configuration file, its model family, its traffic file and
+the readers of its per-layer metrics, each found by name.
 
 - configuration ``<name>``: the file its ``configs`` entry names;
+- model family ``<family>``: ``ssc_bench/families/<family>.py``, named by
+  the configuration's ``"family"`` key (``stereoscene`` where it has
+  none);
 - traffic ``<name>``: ``ssc_bench/traffic/<name>.json``;
 - the limits of ``correct``: ``ssc_bench/limits/<workload>.json``, each
   number the cell's comparison reads that decides it, with its limit;
@@ -16,7 +19,10 @@ import dataclasses
 import importlib.util
 import json
 import os
+from types import ModuleType
 from typing import Callable, Dict, List
+
+from . import families
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -30,6 +36,10 @@ class Cell:
     end_to_end: List[Dict]
     per_layer: List[Dict]
     limits: Dict[str, float]
+
+    @property
+    def family(self) -> ModuleType:
+        return families.of(self.config)
 
     def reader(self, metric: str) -> Callable:
         path = os.path.join(HERE, "layer_metrics", metric + ".py")

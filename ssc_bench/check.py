@@ -1,27 +1,15 @@
 """The numbers that decide ``correct``, each against its limit.
 
-Serving (per sampled frame, the worst over the sample):
-
-- ``depth_gap``: the total variation distance between the program's
-  fused depth distribution and the reference's, averaged over the
-  pixels (half the summed absolute gap over the depth bins);
-- ``logit_gap``: the root-mean-square gap between the program's voxel
-  logits and the reference's, over the reference logits' root mean
-  square;
-- ``class_gap``: at each voxel of the served class map, how far the
-  reference's logit for the served class (the reference's logits
-  upsampled to the label grid) lies below its best, over the reference's
-  largest logit magnitude; the widest such gap. A flip between two
-  near-equal logits reads about the logits' rounding; a wrong answer
-  reads the logits' spread.
-
-The first two are means, not widest gaps: a few pixels whose depth
-softmax is nearly tied move by most of a probability under any rounding,
-so the widest gap of a sound bfloat16 run reached what float8 reads.
+Serving: the numbers of the cell's family (``families/<family>.py``
+``SERVE_NUMBERS``, ``serve_frame``), per sampled frame, the worst over
+the sample.
 
 Training (the first ``check_steps`` steps, which set-up drives through the
 window's own step and feed):
 
+- ``<name>_gap``: for each output the family names in
+  ``FIRST_OUTPUTS``, the root-mean-square gap of the first step's output
+  over the reference's root mean square;
 - ``loss_gap``: the widest relative gap between the program's and the
   reference's total loss over those steps;
 - ``grad_gap``: per parameter tensor (leaf), the gap between the norms of
@@ -34,37 +22,39 @@ window's own step and feed):
   moves under Adam by round-off alone); the worst leaf
   (``change_median``: the median leaf; ``change_p98``: the 98th
   percentile leaf, so that no more than one leaf in fifty may read above
-  its limit).
+  its limit);
+- the family's ``STAGE_NUMBERS``, where it has them: stages of the first
+  step judged alone (``training.reference_steps``).
 """
 
 from __future__ import annotations
 
 import statistics
-from typing import Dict, List
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
-from .reference import model as reference
+# every number a training comparison reads beside the first outputs'
+# (``train_numbers``); the cell's limits name those that decide ``correct``
+TRAIN_NUMBERS = ("loss_gap", "loss1_gap", "grad_gap", "grad_median",
+                 "change_gap", "change_median", "change_p98")
 
-# every number a serving or training comparison reads; the configuration's
-# limits name those that decide ``correct``
-SERVE_NUMBERS = ("depth_gap", "logit_gap", "class_gap")
-TRAIN_NUMBERS = ("stage2_gap", "logit1_gap", "loss_gap", "loss1_gap",
-                 "grad_gap", "grad_median", "change_gap", "change_median",
-                 "change_p98")
-# the outputs of the first training step that the comparison reads: the
-# image backbone's stage 2 (its first feature map, stride 8) and the logits
-FIRST_OUTPUTS = {"stage2": "img_backbone.layers.2", "logits": "pts_bbox_head"}
+
+def train_numbers(family) -> Tuple[str, ...]:
+    """Every number a training cell of ``family`` reads."""
+    return (tuple(k + "_gap" for k in family.FIRST_OUTPUTS) + TRAIN_NUMBERS
+            + getattr(family, "STAGE_NUMBERS", ()))
 
 
 class FirstOutputs:
     """Forward hooks that keep the first output of each module of
-    ``FIRST_OUTPUTS`` (a checkpointed block's recompute comes later)."""
+    ``paths`` (name -> module path; a checkpointed block's recompute comes
+    later)."""
 
-    def __init__(self, model):
+    def __init__(self, model, paths: Dict[str, str]):
         self.out: Dict[str, torch.Tensor] = {}
         self.handles = []
-        for key, path in FIRST_OUTPUTS.items():
+        for key, path in paths.items():
             module = model.get_submodule(path)
             if isinstance(module, torch.nn.Sequential):
                 module = module[-1]  # a stage: its last block
@@ -83,28 +73,7 @@ class FirstOutputs:
         return self.out
 
 
-@torch.no_grad()
-def serve_frame(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
-                classes: torch.Tensor, label_shape) -> Dict[str, float]:
-    """Gaps of one frame: ``prog`` holds the program's ``logits`` [1, C, X,
-    Y, Z] and ``depth_prob``, ``ref`` the reference's, ``classes`` the
-    served class map [1, *label_shape] (any device)."""
-    scale = float(ref["logits"].abs().max())
-    up = reference.upsample(ref["logits"], label_shape)[0]  # [C, ...]
-    cls = classes.to(up.device).long()[0]
-    num = up.shape[0]
-    if tuple(cls.shape) != tuple(label_shape) or int(cls.min()) < 0 \
-            or int(cls.max()) >= num:
-        return dict.fromkeys(SERVE_NUMBERS, float("inf"))
-    served = up.gather(0, cls[None])[0]
-    dp, dr = prog["depth_prob"].float(), ref["depth_prob"]
-    lp, lr = prog["logits"].float(), ref["logits"]
-    return {"depth_gap": float(0.5 * (dp - dr).abs().sum(1).mean()),
-            "logit_gap": float(_rms(lp - lr) / _rms(lr)),
-            "class_gap": float((up.amax(0) - served).max()) / scale}
-
-
-def _rms(x: torch.Tensor) -> torch.Tensor:
+def rms(x: torch.Tensor) -> torch.Tensor:
     return x.square().mean().sqrt()
 
 
@@ -112,7 +81,7 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
     """RMS of the gap over the RMS of ``want`` (inf for another shape)."""
     if got.shape != want.shape:
         return float("inf")
-    return float(_rms(got.float() - want) / _rms(want))
+    return float(rms(got.float() - want) / rms(want))
 
 
 def leaf_gap(got: Dict[str, float], want: Dict[str, float], over=max,
@@ -130,9 +99,10 @@ def p98(values: List[float]) -> float:
     return statistics.quantiles(values, n=50, method="inclusive")[-1]
 
 
-def train_steps(prog: Dict, ref: Dict) -> Dict[str, float]:
-    """``prog`` and ``ref`` each hold ``losses`` (each step's total),
-    ``stage2`` and ``logits`` (``FirstOutputs``), ``grad_norms`` (name ->
+def train_steps(prog: Dict, ref: Dict,
+                first: Iterable[str]) -> Dict[str, float]:
+    """``prog`` and ``ref`` each hold ``losses`` (each step's total), the
+    outputs named in ``first`` (``FirstOutputs``), ``grad_norms`` (name ->
     first clipped gradient's norm) and ``change_norms`` (name -> norm of
     the change after the steps)."""
     loss_gap = max(abs(p - r) / max(abs(r), 1e-30)
@@ -143,8 +113,7 @@ def train_steps(prog: Dict, ref: Dict) -> Dict[str, float]:
     floor = 1e-3 * statistics.median(grads.values())
     kept = [n for n in grads if grads[n] >= floor]
     change = ref["change_norms"]
-    return {"stage2_gap": _rel(prog["stage2"], ref["stage2"]),
-            "logit1_gap": _rel(prog["logits"], ref["logits"]),
+    return {**{k + "_gap": _rel(prog[k], ref[k]) for k in first},
             "loss_gap": loss_gap,
             "loss1_gap": abs(prog["losses"][0] - ref["losses"][0])
             / max(abs(ref["losses"][0]), 1e-30),

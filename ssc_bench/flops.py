@@ -11,26 +11,17 @@ from typing import Dict
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from .reference import model as reference
+from . import families
 
 
-def forward_flops(model_cfg: Dict, batch: int) -> int:
-    """FLOPs of one eval forward of ``batch`` frames, the voxel ranks of
-    the frustum (a function of the calibration alone, which the program
-    builds once on the host) made outside the count."""
-    m = model_cfg
-    h, w = m["input_size"]
+def forward_flops(config: Dict, batch: int) -> int:
+    """FLOPs of one eval forward of ``batch`` frames of the configuration
+    file ``config``'s model, on the inputs its family gives
+    (``flop_inputs``)."""
+    family, m = families.of(config), config["model"]
     with torch.device("meta"):
-        net = reference.build(m, "meta")
-        inputs = {"imgs": torch.empty(batch, 2, h, w, 3),
-                  "rots": torch.empty(batch, 2, 3, 3),
-                  "trans": torch.empty(batch, 2, 3),
-                  "intrins": torch.empty(batch, 2, 3, 4),
-                  "post_rots": torch.empty(batch, 2, 3, 3),
-                  "post_trans": torch.empty(batch, 2, 3),
-                  "bda": torch.empty(batch, 3, 3),
-                  "calib": torch.empty(batch)}
-        ranks = net.ranks(inputs)
+        net = family.build_reference(m, "meta")
+        args, kwargs = family.flop_inputs(net, m, batch)
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
-        net(inputs, ranks=ranks)
+        net(*args, **kwargs)
     return int(counter.get_total_flops())

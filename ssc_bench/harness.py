@@ -1,6 +1,6 @@
 """What the serving and training cells share: the program under test built
-from a configuration file, the seeded weights handed to it, the modules
-that may not be loaded, and the result line."""
+from a configuration file by its family, the seeded weights handed to it,
+the modules that may not be loaded, and the result line."""
 
 from __future__ import annotations
 
@@ -12,8 +12,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from . import weights
-from .reference import model as reference
+from . import families, weights
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "stereoscene_tpu")
 
@@ -24,10 +23,19 @@ def forbidden_modules() -> List[str]:
                   & set(FORBIDDEN))
 
 
-def weight_spec(model_cfg: Dict) -> weights.Spec:
+def weight_spec(config: Dict) -> weights.Spec:
     """The (name, shape) of every tensor of the model's ``state_dict``,
-    read off the reference built on the meta device."""
-    return weights.spec_of(reference.build(model_cfg, "meta").state_dict())
+    read off the family's reference built on the meta device."""
+    return weights.spec_of(families.of(config).build_reference(
+        config["model"], "meta").state_dict())
+
+
+def seeded_weights(config: Dict, seed: int, device,
+                   spec: Optional[weights.Spec] = None):
+    """The seed's weights of ``config``'s model (``spec``: its
+    ``weight_spec`` where the caller has it), damped as its family says."""
+    return weights.make(spec or weight_spec(config), seed, device,
+                        families.of(config).DAMPED)
 
 
 def load_weights(module: torch.nn.Module, state: Dict[str, torch.Tensor]):
@@ -42,16 +50,9 @@ def load_weights(module: torch.nn.Module, state: Dict[str, torch.Tensor]):
 
 
 def build_program(config: Dict, device):
-    """The program's detector for ``config`` on ``device`` (float32)."""
-    from stereoscene_torch.models.detector import (BEVDepthOccupancy,
-                                                   DetectorConfig)
-
-    det = DetectorConfig(**{k: tuple(v) if isinstance(v, list) else v
-                            for k, v in config["model"].items()})
-    with torch.device(device):
-        model = BEVDepthOccupancy(det, device=device,
-                                  label_shape=tuple(config["label_shape"]))
-    return model
+    """The program under test for ``config`` on ``device`` (float32), as
+    its family builds it."""
+    return families.of(config).build_program(config, device)
 
 
 def program_build_seconds() -> float:

@@ -12,6 +12,6 @@ def read(ctx):
     peak = peaks(torch.cuda.get_device_name(ctx["device"]))
     if peak is None or not ctx["frames"]:
         return None
-    flops = forward_flops(ctx["cell"].config["model"], 1)
+    flops = forward_flops(ctx["cell"].config, 1)
     return 100.0 * flops * ctx["frames"] / ctx["window_s"] \
         / peak["bf16_flop_per_s"]

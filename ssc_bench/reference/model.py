@@ -781,6 +781,7 @@ class Detector(nn.Module):
         self.register_buffer("frustum", torch.from_numpy(
             geometry.create_frustum(tuple(m["input_size"]), m["downsample"],
                                     m["dbound"])), persistent=False)
+        self.checkpoint_voxels = False
 
     def ranks(self, batch) -> torch.Tensor:
         """[B, D*fH*fW] voxel ranks of the left camera's frustum."""
@@ -808,9 +809,27 @@ class Detector(nn.Module):
         vox, depth_prob = self.img_view_transformer(
             feats[:b], feats[b:], mlp[:, 0], mlp[:, 1], batch["calib"],
             self.ranks(batch) if ranks is None else ranks, generator)
-        fused = self.img_bev_encoder_neck(self.img_bev_encoder_backbone(vox))
-        return {"logits": self.pts_bbox_head(fused),
-                "depth_prob": depth_prob}
+        if self.checkpoint_voxels and torch.is_grad_enabled():
+            logits = self._recomputed_voxel_side(vox)
+        else:
+            logits = self.pts_bbox_head(self.img_bev_encoder_neck(
+                self.img_bev_encoder_backbone(vox)))
+        return {"logits": logits, "depth_prob": depth_prob}
+
+    def _recomputed_voxel_side(self, vox):
+        """The voxel encoder, its neck and the head, each of the encoder's
+        input projection and blocks and then the neck with the head
+        recomputed in the backward (the same operations in the same order:
+        the memory of a large grid, not the result, changes)."""
+        enc = self.img_bev_encoder_backbone
+        x = checkpoint(enc.input_proj, vox, use_reentrant=False)
+        outs = []
+        for layer in enc.layers:
+            for block in layer:
+                x = checkpoint(block, x, use_reentrant=False)
+            outs.append(x)
+        return checkpoint(lambda *f: self.pts_bbox_head(
+            self.img_bev_encoder_neck(list(f))), *outs, use_reentrant=False)
 
 
 def upsample(logits: torch.Tensor, label_shape: Sequence[int]) -> torch.Tensor:
@@ -820,31 +839,16 @@ def upsample(logits: torch.Tensor, label_shape: Sequence[int]) -> torch.Tensor:
                          align_corners=False)
 
 
-def fp8_quantizer(x: torch.Tensor) -> torch.Tensor:
-    """Per-tensor scaled float8 (e4m3) quantize-dequantize, with a
-    straight-through gradient."""
-    return _Fp8.apply(x)
-
-
-class _Fp8(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        scale = x.detach().abs().amax().clamp_min(1e-30) / 448.0
-        return (x / scale).to(torch.float8_e4m3fn).to(x.dtype) * scale
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad
-
-
 def build(model_cfg: Dict, device, quantizer: Optional[Callable] = None,
           checkpoint_blocks: bool = False) -> Detector:
     """The reference on ``device`` in float32, with every product through
-    ``quantizer`` where one is given."""
+    ``quantizer`` where one is given; ``checkpoint_blocks`` recomputes the
+    image backbone's blocks and the voxel side in the backward."""
     with torch.device(device):
         model = Detector(model_cfg)
     model.to(device)
     if quantizer is not None:
         set_quantizer(model, quantizer)
     model.img_backbone.checkpoint_blocks = checkpoint_blocks
+    model.checkpoint_voxels = checkpoint_blocks
     return model.eval()

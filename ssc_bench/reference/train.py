@@ -1,5 +1,5 @@
 """The plain reference's training step: forward in training mode, the
-published loss terms, the gradient, a clip of its global norm, and AdamW
+family's loss terms, the gradient, a clip of its global norm, and AdamW
 written out (torch's update rule: decoupled weight decay, bias-corrected
 moments, eps outside the square root)."""
 
@@ -8,8 +8,6 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Sequence
 
 import torch
-
-from .losses import losses
 
 
 class AdamW:
@@ -36,21 +34,20 @@ class AdamW:
 
 
 def train_steps(model, batches: Sequence[Dict[str, torch.Tensor]],
-                generators: Sequence[torch.Generator], loss_weights: Dict,
-                optim: Dict, downsample: int, dbound: Sequence[float],
+                generators: Sequence[torch.Generator], loss: Callable,
+                optim: Dict,
                 on_first_grads: Callable = None) -> List[Dict[str, float]]:
     """One step per batch from the model's current parameters; returns
-    each step's loss terms and ``loss_total``. ``on_first_grads(names,
-    grads)`` sees the first step's clipped gradient, as the optimizer gets
-    it."""
+    each step's loss terms (``loss(outputs, batch)``, a dict of scalars)
+    and ``loss_total``. ``on_first_grads(names, grads)`` sees the first
+    step's clipped gradient, as the optimizer gets it."""
     model.train()
     named = [(n, p) for n, p in model.named_parameters()]
     params = [p for _, p in named]
     opt = AdamW(params, optim["lr"], optim["weight_decay"])
     logs = []
     for i, (batch, gen) in enumerate(zip(batches, generators)):
-        terms = losses(model(batch, gen), batch, loss_weights, downsample,
-                       dbound)
+        terms = loss(model(batch, gen), batch)
         total = sum(terms.values())
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g

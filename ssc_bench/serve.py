@@ -1,5 +1,6 @@
-"""A serving cell: the program's ``BEVDepthOccupancy.infer`` answering a
-camera stream in a closed loop, one frame in flight.
+"""A serving cell: the program's serving call (``model.infer(batch)``;
+StereoScene: ``BEVDepthOccupancy.infer``) answering a camera stream in a
+closed loop, one frame in flight.
 
 The client takes the newest frame as soon as the last answer is out, as a
 driving stack does with a camera faster than its model: each frame is
@@ -28,9 +29,8 @@ from typing import Dict, List
 import torch
 from torch.profiler import record_function
 
-from . import check, generate, harness, weights
+from . import check, families, generate, harness
 from .cell import Cell
-from .reference import model as reference
 from .trace import WINDOW, Trace
 
 
@@ -44,21 +44,23 @@ def p95(values: List[float]) -> float:
 
 class Capture:
     """Forward hooks that keep, for the pool slots under check, the last
-    fused depth distribution and voxel logits the timed path produced, and
-    (traced runs) CUDA events at the stage boundaries."""
+    outputs of the timed path that the family's comparison reads
+    (``SERVE_OUTPUTS``), and (traced runs) CUDA events at its stage
+    boundaries (``STAGES``)."""
 
-    def __init__(self, model, slots, spans: bool):
+    def __init__(self, model, family, slots, spans: bool):
         self.slots, self.slot = set(slots), None
         self.out: Dict[int, Dict[str, torch.Tensor]] = {}
         self.marks: Dict[str, torch.cuda.Event] = {}
+        self.stage_names = [name for name, _ in family.STAGES]
         self.stages: List[tuple] = []
         self.handles = [
-            model.img_view_transformer.register_forward_hook(self._view),
-            model.pts_bbox_head.register_forward_hook(self._head)]
+            model.get_submodule(path).register_forward_hook(
+                self._keeper(key, keep))
+            for key, (path, keep) in family.SERVE_OUTPUTS.items()]
         if spans:
-            for name in ("img_backbone", "img_view_transformer",
-                         "img_bev_encoder_backbone"):
-                self.handles.append(getattr(model, name)
+            for name, path in family.STAGES:
+                self.handles.append(model.get_submodule(path)
                                     .register_forward_pre_hook(
                                         self._mark(name)))
 
@@ -69,29 +71,27 @@ class Capture:
             self.marks[name] = ev
         return hook
 
-    def _view(self, _m, _i, out):
-        if self.slot in self.slots:
-            self.out.setdefault(self.slot, {})["depth_prob"] = out[1]
-
-    def _head(self, _m, _i, out):
-        if self.slot in self.slots:
-            self.out.setdefault(self.slot, {})["logits"] = out
+    def _keeper(self, key, keep):
+        def hook(_m, _i, out):
+            if self.slot in self.slots:
+                self.out.setdefault(self.slot, {})[key] = keep(out)
+        return hook
 
     def frame_done(self) -> None:
         if self.marks:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
-            self.stages.append((self.marks["img_backbone"],
-                                self.marks["img_view_transformer"],
-                                self.marks["img_bev_encoder_backbone"], end))
+            self.stages.append(tuple(self.marks[name]
+                                     for name in self.stage_names) + (end,))
 
     def stage_ms(self) -> Dict[str, List[float]]:
+        """Each stage's device ms a frame, from its module's pre-hook to
+        the next stage's (the last: to the class map)."""
         torch.cuda.synchronize()
-        out = {"images": [], "view": [], "bev": []}
-        for a, b, c, d in self.stages:
-            out["images"].append(a.elapsed_time(b))
-            out["view"].append(b.elapsed_time(c))
-            out["bev"].append(c.elapsed_time(d))
+        out = {name: [] for name in self.stage_names}
+        for events in self.stages:
+            for name, a, b in zip(self.stage_names, events, events[1:]):
+                out[name].append(a.elapsed_time(b))
         return out
 
     def remove(self):
@@ -103,15 +103,14 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         t0: float, break_answer=None) -> harness.Outcome:
     """``break_answer(classes)`` (tests only) alters each answer where it
     is produced."""
-    cfg, traffic = cell.config, cell.traffic
+    cfg, traffic, family = cell.config, cell.traffic, cell.family
     m = cfg["model"]
     cuda = torch.device(device).type == "cuda"
     dtype = getattr(torch, cfg["precision"])
 
     build_s = harness.program_build_seconds() if cuda else 0.0
-    spec = harness.weight_spec(m)
     model = harness.build_program(cfg, device)
-    harness.load_weights(model, weights.make(spec, seed, device))
+    harness.load_weights(model, harness.seeded_weights(cfg, seed, device))
     model.to(dtype)
     pool = generate.frame_pool(traffic, m["input_size"], seed, device)
     geos = [generate.geometry_batch(traffic, m["input_size"],
@@ -119,7 +118,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
             for i in range(generate.calibration_period(traffic))]
     slots = random.Random(seed).sample(range(traffic["pool"]),
                                        traffic["check_frames"])
-    capture = Capture(model, slots, spans=trace and cuda)
+    capture = Capture(model, family, slots, spans=trace and cuda)
 
     received: Dict[int, torch.Tensor] = {}
 
@@ -194,11 +193,11 @@ def _check(cfg, traffic, limits, seed, device, slots, outputs,
     """The sampled frames against the reference (float32, TF32 off)."""
     harness.reference_precision()
     m = cfg["model"]
-    ref = reference.build(m, device)
-    harness.load_weights(ref, weights.make(harness.weight_spec(m), seed,
-                                           device))
+    family = families.of(cfg)
+    ref = family.build_reference(m, device)
+    harness.load_weights(ref, harness.seeded_weights(cfg, seed, device))
     pool = generate.frame_pool(traffic, m["input_size"], seed, device)
-    worst = dict.fromkeys(check.SERVE_NUMBERS, 0.0)
+    worst = dict.fromkeys(family.SERVE_NUMBERS, 0.0)
     for slot in slots:
         if slot not in outputs or slot not in answers:
             worst = dict.fromkeys(worst, float("inf"))
@@ -209,7 +208,7 @@ def _check(cfg, traffic, limits, seed, device, slots, outputs,
         with torch.no_grad():
             out = ref(dict(geo, imgs=pool[slot].to(device)))
         for j in range(traffic["batch"]):
-            gaps = check.serve_frame(
+            gaps = family.serve_frame(
                 {k: v[j:j + 1] for k, v in outputs[slot].items()},
                 {k: v[j:j + 1] for k, v in out.items()}, classes[j:j + 1],
                 tuple(cfg["label_shape"]))

@@ -10,6 +10,7 @@ import pytest
 
 from ssc_bench import check, flops, roofline, serve
 from ssc_bench.cell import Cell
+from ssc_bench.families import stereoscene
 from ssc_bench.trace import Op, Trace
 
 from .conftest import ROOT
@@ -102,7 +103,7 @@ def test_flops_of_the_published_forward():
     with open(os.path.join(ROOT, "ssc_bench/configs/"
                            "stereoscene_kitti.json")) as f:
         config = json.load(f)
-    assert flops.forward_flops(config["model"], 1) / 1e9 == \
+    assert flops.forward_flops(config, 1) / 1e9 == \
         pytest.approx(4203.43, abs=0.01)
 
 
@@ -115,10 +116,10 @@ def test_leaf_gap_measure():
 
     one = torch.ones(2, 3)
     prog = {"losses": [1.0, 2.0], "grad_norms": got, "change_norms": got,
-            "stage2": one * 1.1, "logits": one[:1]}
+            "stage2": one * 1.1, "logit1": one[:1]}
     ref = {"losses": [1.0, 2.2], "grad_norms": want, "change_norms": want,
-           "stage2": one, "logits": one}
-    gaps = check.train_steps(prog, ref)
+           "stage2": one, "logit1": one}
+    gaps = check.train_steps(prog, ref, ("stage2", "logit1"))
     assert gaps["loss_gap"] == pytest.approx(0.2 / 2.2)
     assert gaps["change_gap"] == pytest.approx(0.1)
     # the 98th percentile of the kept leaves' change gaps (a 0.1, b 0.001)
@@ -140,12 +141,12 @@ def test_first_outputs_keep_without_changing():
          torch.nn.Sequential(torch.nn.Linear(2, 2), torch.nn.Linear(2, 2))])
     net.pts_bbox_head = torch.nn.Linear(2, 2)
     net.to(torch.bfloat16)
-    keep = check.FirstOutputs(net)
+    keep = check.FirstOutputs(net, stereoscene.FIRST_OUTPUTS)
     x = torch.ones(1, 2, dtype=torch.bfloat16)
     first = net.pts_bbox_head(net.img_backbone.layers[2](x))
     net.pts_bbox_head(x * 2)
     out = keep.remove()
     assert first.dtype == torch.bfloat16
-    assert out["logits"].dtype == torch.float32
-    assert torch.equal(out["logits"], first.float())
-    assert set(out) == {"stage2", "logits"}
+    assert out["logit1"].dtype == torch.float32
+    assert torch.equal(out["logit1"], first.float())
+    assert set(out) == {"stage2", "logit1"}

@@ -66,7 +66,7 @@ def test_limits_name_numbers_the_comparison_reads(workload):
     from ssc_bench import check
 
     cell = cells.load(ROOT, workload)
-    numbers = (check.SERVE_NUMBERS if cell.traffic["kind"] == "serve"
-               else check.TRAIN_NUMBERS)
+    numbers = (cell.family.SERVE_NUMBERS if cell.traffic["kind"] == "serve"
+               else check.train_numbers(cell.family))
     assert cell.limits and set(cell.limits) <= set(numbers)
     assert all(0 < v < 1 for v in cell.limits.values())

@@ -34,17 +34,18 @@ def test_serving_control_fails(seed):
                                         limits("kitti-serve-stream")))
 
 
+@pytest.mark.parametrize("workload", ["kitti-train-b2", "highres-train-b1"])
 @pytest.mark.parametrize("seed", [1, 2])
-def test_training_control_fails(seed):
-    readings = calibrate._train_control(tiny("kitti-train-b2", batches=3),
-                                        seed, "cpu")
-    assert not check.passed(check.judge(readings, limits("kitti-train-b2")))
+def test_training_control_fails(workload, seed):
+    readings = calibrate._train_control(tiny(workload, batches=3), seed,
+                                        "cpu")
+    assert not check.passed(check.judge(readings, limits(workload)))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", ["kitti-serve-stream",
                                       "highres-serve-stream",
-                                      "kitti-train-b2"])
+                                      "kitti-train-b2", "highres-train-b1"])
 def test_control_fails_at_the_cells_size(cuda_card, workload):
     cell = load(ROOT, workload)
     run = (calibrate._serve_control if cell.traffic["kind"] == "serve"

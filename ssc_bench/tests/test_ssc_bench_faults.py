@@ -52,6 +52,33 @@ def test_training_faults_are_caught(tiny_cell, fault):
                                 "setup_s"}
 
 
+@pytest.mark.parametrize("fault", [None, unchanged_state],
+                         ids=["sound", "unchanged_state"])
+def test_training_faults_at_batch_one_are_caught(tiny_cell, fault):
+    """At B = 1 no half of a batch exists: a state left unchanged is the
+    step's fault here, and the dropped slab the loss's (below)."""
+    cell = tiny_cell("highres-train-b1", batches=3)
+    out = training.run(cell, 13, 0.5, False, "cpu", time.time(),
+                       break_step=fault)
+    assert out.correct == (fault is None), out.checks
+
+
+@pytest.mark.parametrize("fault", [None, "loss_slab"])
+def test_stages_of_the_first_step_are_judged_alone(tiny_cell, fault):
+    """The voxel side on the program's own input and the loss on the
+    program's own outputs: float32 rounding when sound; a loss that leaves
+    out a sixteenth of the grid reads far above it, while the voxel side,
+    which the loss does not reach in the first forward, reads the same."""
+    cell = tiny_cell("highres-train-b1", batches=4)
+    cell.limits = {"bev_gap": 1e-5, "loss_outputs_gap": 1e-5}
+    out = training.run(cell, 7, 0.5, False, "cpu", time.time(),
+                       break_step=fault and calibrate.TRAIN_FAULTS[fault])
+    assert out.checks["bev_gap"]["value"] <= 1e-5, out.checks
+    assert out.correct == (fault is None), out.checks
+    if fault:
+        assert out.checks["loss_outputs_gap"]["value"] > 1e-3, out.checks
+
+
 def test_loss_over_half_the_batch_is_caught(tiny_cell):
     """The forward over the whole batch keeps every shape and the first
     stage's features; the first gradient tells the loss over half of it."""

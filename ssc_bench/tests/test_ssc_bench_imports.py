@@ -1,10 +1,12 @@
 """What the harness loads: no JAX and nothing of the JAX package where a
-run drives the program, and nothing of the program in the reference and
-the benchmark's yardsticks. Each case runs in a fresh interpreter and
-compares top-level module names whole (``stereoscene_torch`` begins with
-the JAX package's name and is not it)."""
+run drives the program or a family module is imported, and nothing of the
+program in the references and the benchmark's yardsticks. Each case runs
+in a fresh interpreter and compares top-level module names whole
+(``stereoscene_torch`` begins with the JAX package's name and is not
+it)."""
 
 import json
+import os
 import subprocess
 import sys
 
@@ -14,10 +16,21 @@ from .conftest import ROOT
 
 FORBIDDEN = ["jax", "jaxlib", "flax", "stereoscene_tpu"]
 
-REFERENCE = """
-from ssc_bench.reference import geometry, losses, model, train
+
+
+def modules(folder):
+    """Every module of ``ssc_bench/<folder>`` (a family or reference that
+    a later change adds is held to the same)."""
+    return [f"ssc_bench.{folder}.{name[:-3]}" for name in
+            sorted(os.listdir(os.path.join(ROOT, "ssc_bench", folder)))
+            if name.endswith(".py") and name != "__init__.py"]
+
+
+IMPORT = "import importlib\nfor m in {!r}:\n    importlib.import_module(m)\n"
+REFERENCE = IMPORT.format(modules("reference")) + """
 from ssc_bench import check, flops, generate, roofline, weights
 """
+FAMILIES = IMPORT.format(modules("families"))
 
 RUN = """
 import json, time, torch
@@ -48,12 +61,16 @@ def loaded(code):
 @pytest.mark.parametrize("code,absent", [
     (REFERENCE, FORBIDDEN + ["stereoscene_torch"]),
     (RUN, FORBIDDEN),
-])
+    (FAMILIES, FORBIDDEN),
+], ids=["reference", "run", "families"])
 def test_modules_loaded(code, absent):
     names = loaded(code)
     assert not names & set(absent), sorted(names & set(absent))
     if code is RUN:
         assert "stereoscene_torch" in names
+    if code is FAMILIES:
+        assert "stereoscene" in {m.rsplit(".", 1)[1]
+                                 for m in modules("families")}
 
 
 def test_forbidden_names_compare_whole(monkeypatch):

@@ -8,7 +8,8 @@ import os
 import pytest
 import torch
 
-from ssc_bench import check, generate, harness, weights
+from ssc_bench import check, generate, harness
+from ssc_bench.families import stereoscene
 from ssc_bench.reference import model as reference
 from ssc_bench.reference.train import train_steps
 
@@ -33,7 +34,7 @@ def frames(config, seed):
 
 def test_eval_forward_matches_the_program(tiny):
     m = tiny["model"]
-    state = weights.make(harness.weight_spec(m), 11, "cpu")
+    state = harness.seeded_weights(tiny, 11, "cpu")
     program = harness.build_program(tiny, "cpu")
     harness.load_weights(program, state)
     ref = reference.build(m, "cpu")
@@ -43,7 +44,7 @@ def test_eval_forward_matches_the_program(tiny):
             got = program(batch)
             want = ref(batch)
             classes = program.infer(batch)
-        gaps = check.serve_frame(
+        gaps = stereoscene.serve_frame(
             {"logits": got["output_voxels"].permute(0, 4, 1, 2, 3),
              "depth_prob": got["depth_prob"]}, want, classes,
             tiny["label_shape"])
@@ -55,19 +56,17 @@ def test_training_steps_match_the_program(tiny):
     from stereoscene_torch.engine.train import (create_train_state,
                                                 make_train_step)
 
-    from ssc_bench.training import loss_config
-
     m = tiny["model"]
     with open(os.path.join(HERE, "..", "traffic", "train_b2.json")) as f:
         traffic = dict(json.load(f), batches=3)
     batches = generate.train_batches(traffic, m["input_size"],
                                      tiny["label_shape"], m["dbound"], 5,
                                      "cpu")
-    state_dict = weights.make(harness.weight_spec(m), 5, "cpu")
+    state_dict = harness.seeded_weights(tiny, 5, "cpu")
     program = harness.build_program(tiny, "cpu")
     harness.load_weights(program, state_dict)
     state = create_train_state(program, device="cpu")
-    step = make_train_step(loss_config(tiny))
+    step = make_train_step(stereoscene.loss_config(tiny))
     losses = []
     for s, batch in enumerate(batches):
         losses.append(float(step(state, batch, generate.step_generator(
@@ -80,8 +79,8 @@ def test_training_steps_match_the_program(tiny):
     grads = {}
     logs = train_steps(ref, batches, [generate.step_generator(5, s, "cpu")
                                       for s in range(3)],
-                       tiny["loss_weights"], tiny["optimizer"],
-                       m["downsample"], m["dbound"],
+                       lambda out, batch: stereoscene.reference_losses(
+                           out, batch, tiny), tiny["optimizer"],
                        lambda names, gs: grads.update(
                            (n, float(g.norm())) for n, g in zip(names, gs)))
     # the first two steps agree to float32 rounding; Adam's first updates
@@ -90,3 +89,25 @@ def test_training_steps_match_the_program(tiny):
                                        rel=1e-6)
     assert losses[2] == pytest.approx(logs[2]["loss_total"], rel=1e-3)
     assert check.leaf_gap(first, grads) < 1e-4
+
+
+def test_voxel_terms_in_blocks_match_the_whole(monkeypatch):
+    """Labels above ``BLOCK_VOXELS`` are summed block by block, each block
+    recomputed in the backward: the same terms and the same gradient to
+    float32 rounding; at or below it, the whole grid in one piece."""
+    from ssc_bench.reference import losses
+
+    gen = torch.Generator().manual_seed(5)
+    up = torch.randn(2, 20, 8, 6, 4, generator=gen, requires_grad=True)
+    gt = torch.multinomial(torch.ones(20), 2 * 8 * 6 * 4, replacement=True,
+                           generator=gen).reshape(2, 8, 6, 4)
+    gt[:, :, 0] = 255
+    runs = []
+    for block in (gt.numel(), 40):
+        monkeypatch.setattr(losses, "BLOCK_VOXELS", block)
+        terms = losses.voxel_terms(up, gt)
+        runs.append([t.detach() for t in terms]
+                    + list(torch.autograd.grad(sum(terms), [up])))
+    for whole, blocked in zip(*runs):
+        torch.testing.assert_close(blocked, whole, rtol=1e-5, atol=1e-7)
+    assert losses.voxel_terms(up, gt)[0].grad_fn is not None

@@ -1,6 +1,7 @@
-"""A training cell: the program's own step (``engine.train``'s
-``create_train_state`` and ``make_train_step`` in the bf16 policy) over
-seeded batches made on the device.
+"""A training cell: the program's own step (its family's
+``train_program``; StereoScene: ``engine.train``'s ``create_train_state``
+and ``make_train_step`` in the bf16 policy) over seeded batches made on
+the device.
 
 Set-up builds one train state from the seed's weights and drives it
 through its first ``check_steps`` steps, each on its own batch, through
@@ -13,7 +14,9 @@ window, ``train_peak_gib`` the allocated peak within it.
 
 Once the window has closed and the program is freed, the plain reference
 (float32, TF32 off) takes the same first steps from the same weights,
-batches and dropout draws.
+batches and dropout draws. Where the family judges stages of the first
+step alone (``FirstStage``, ``stage_gaps``), the reference first runs
+each on what the program fed it.
 """
 
 from __future__ import annotations
@@ -25,44 +28,25 @@ from typing import Dict
 import torch
 from torch.profiler import record_function
 
-from . import check, generate, harness, weights
+from . import check, families, generate, harness
 from .cell import Cell
-from .reference import model as reference
 from .reference.train import train_steps
 from .trace import WINDOW, Trace
-
-
-def loss_config(cfg: Dict):
-    from stereoscene_torch.engine.train import LossConfig
-
-    w, m = cfg["loss_weights"], cfg["model"]
-    return LossConfig(voxel_ce=w["voxel_ce"],
-                      voxel_sem_scal=w["voxel_sem_scal"],
-                      voxel_geo_scal=w["voxel_geo_scal"],
-                      loss_depth_weight=w["depth"], loss_depth_type="bce",
-                      stream_voxel_chunks=w.get("stream_voxel_chunks", 0),
-                      downsample=m["downsample"], dbound=tuple(m["dbound"]))
 
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         t0: float, break_step=None) -> harness.Outcome:
     """``break_step(step)`` (tests only) wraps the program's step."""
-    from stereoscene_torch.engine.train import (create_train_state,
-                                                make_train_step)
-
-    cfg, traffic = cell.config, cell.traffic
-    m, opt = cfg["model"], cfg["optimizer"]
+    cfg, traffic, family = cell.config, cell.traffic, cell.family
+    m = cfg["model"]
     cuda = torch.device(device).type == "cuda"
     label_shape = tuple(cfg["label_shape"])
     build_s = harness.program_build_seconds() if cuda else 0.0
-    spec = harness.weight_spec(m)
+    spec = harness.weight_spec(cfg)
     model = harness.build_program(cfg, device)
-    harness.load_weights(model, weights.make(spec, seed, device))
-    state = create_train_state(model, lr=opt["lr"],
-                               weight_decay=opt["weight_decay"],
-                               grad_clip=opt["grad_clip"], device=device)
-    step = make_train_step(loss_config(cfg), bf16=cfg["precision"]
-                           == "bfloat16")
+    harness.load_weights(model, harness.seeded_weights(cfg, seed, device,
+                                                       spec))
+    state, step = family.train_program(model, cfg, device)
     if break_step is not None:
         step = break_step(step)
     batches = generate.train_batches(traffic, m["input_size"], label_shape,
@@ -75,10 +59,13 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     first = traffic["check_steps"]
     losses, grad_norms = [], None
-    outputs = check.FirstOutputs(model)
+    outputs = check.FirstOutputs(model, family.FIRST_OUTPUTS)
+    stage = family.FirstStage(model) if hasattr(family, "FirstStage") \
+        else None
     for s in range(first):
         logs = one(s)
         outputs.remove()
+        kept = stage.remove() if stage is not None else {}
         losses.append(float(logs["loss_total"]))
         if s == 0:
             moments = [(n, state.optimizer.state[p]["exp_avg"])
@@ -87,7 +74,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
             grad_norms = check.leaf_norms(moments, 1 / (1 - beta1))
     prog = {"losses": losses, **outputs.out, "grad_norms": grad_norms,
             "change_norms": check.change_norms(
-                state.trainable, weights.make(spec, seed, device))}
+                state.trainable,
+                harness.seeded_weights(cfg, seed, device, spec))}
     if cuda:
         torch.cuda.synchronize()
         setup_peak = torch.cuda.max_memory_allocated()
@@ -118,37 +106,58 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     ctx = {"cell": cell, "steps": steps, "frames": steps * b,
            "window_s": window_s, "trace": tracer, "spans": {},
            "device": device}
-    checks = check.judge(check.train_steps(prog, _reference(cfg, traffic,
-                                                            seed, device)),
-                         cell.limits)
+    ref = reference_steps(cfg, traffic, seed, device, first=dict(
+        kept, **outputs.out, loss1=losses[0]) if stage is not None else None)
+    checks = check.judge(dict(check.train_steps(prog, ref,
+                                                family.FIRST_OUTPUTS),
+                              **ref["stage"]), cell.limits)
     return harness.Outcome(
         correct=check.passed(checks), attempted=steps, failed=0,
         metrics=harness.select(cell, trace, metrics, ctx), checks=checks,
         memory_peak_bytes=peak, trace=tracer, extra={"build_s": build_s})
 
 
-def _reference(cfg, traffic, seed, device) -> Dict:
-    """The reference's first steps: losses, first clipped gradient's leaf
-    norms, leaf changes."""
+def reference_steps(cfg, traffic, seed, device, quantizer=None, first=None,
+                    keep_first=False) -> Dict:
+    """The reference's first steps (every product through ``quantizer``
+    where one is given): losses, the first outputs, the first clipped
+    gradient's leaf norms, leaf changes; ``stage``: the family's
+    ``stage_gaps`` of ``first`` (what another side's first step fed and
+    made), judged before the steps; with ``keep_first``, ``first``: this
+    side's own, for the same judgement."""
     harness.reference_precision()
     m = cfg["model"]
-    ref = reference.build(m, device, checkpoint_blocks=torch.device(
-        device).type == "cuda")
-    spec = harness.weight_spec(m)
-    harness.load_weights(ref, weights.make(spec, seed, device))
+    family = families.of(cfg)
+    ref = family.build_reference(
+        m, device, quantizer=quantizer,
+        checkpoint_blocks=torch.device(device).type == "cuda")
+    spec = harness.weight_spec(cfg)
+    harness.load_weights(ref, harness.seeded_weights(cfg, seed, device,
+                                                     spec))
     batches = generate.train_batches(traffic, m["input_size"],
                                      tuple(cfg["label_shape"]), m["dbound"],
                                      seed, device)
     n = traffic["check_steps"]
+    stage = {} if first is None else family.stage_gaps(ref, first,
+                                                       batches[0], cfg)
     grads = {}
-    outputs = check.FirstOutputs(ref)
+    outputs = check.FirstOutputs(ref, family.FIRST_OUTPUTS)
+    kept = family.FirstStage(ref) if keep_first else None
     logs = train_steps(
         ref, batches[:n], [generate.step_generator(seed, s, device)
                            for s in range(n)],
-        cfg["loss_weights"], cfg["optimizer"], m["downsample"], m["dbound"],
+        lambda out, batch: family.reference_losses(out, batch, cfg),
+        cfg["optimizer"],
         lambda names, gs: grads.update(check.leaf_norms(list(zip(names,
                                                                  gs)))))
-    return {"losses": [x["loss_total"] for x in logs], "grad_norms": grads,
-            **outputs.remove(),
+    losses = [x["loss_total"] for x in logs]
+    out = {"losses": losses, "grad_norms": grads, "stage": stage,
+           **outputs.remove()}
+    if kept is not None:
+        out["first"] = dict(kept.remove(), **{k: out[k] for k in
+                                              family.FIRST_OUTPUTS},
+                            loss1=losses[0])
+    return {**out,
             "change_norms": check.change_norms(
-                ref.named_parameters(), weights.make(spec, seed, device))}
+                ref.named_parameters(),
+                harness.seeded_weights(cfg, seed, device, spec))}

@@ -8,19 +8,8 @@ near (0, 1), the zero-initialised gates (``gamma``, ``alpha``) at 0.3 so
 the branches behind them count, and the DCN offset head at a tenth of its
 He bound (sub-pixel offsets).
 
-The image backbone's residual branches enter at 0.3 of their scale (the
-scale and shift of each MBConv block's last BatchNorm), as EfficientNet's
-training starts them near zero. With every branch at full scale the 55
-blocks of b7 are chaotic under random weights: the activations grow to
-1e6 and bfloat16 rounding grows with them until the image features
-differ from float32 by most of their size, so no comparison could tell a
-sound bfloat16 run from a broken one. For the same reason the three
-convolutions that feed a softmax over the 112 depth bins start at 0.3 of
-their scale: at full scale some seeds gave the MIE's fused depth
-distribution a mean peak of 0.58 with nearly tied bins, where bfloat16
-rounding moves a pixel's depth and with it the voxel features it lifts
-(the fused distribution 5.7% off float32 where the inputs were 1.3% off),
-so a sound run read as far from the reference as float8 does.
+The names a family damps (``DAMPED``) start at ``DAMPING`` of their
+scale: the family module says why.
 """
 
 from __future__ import annotations
@@ -31,13 +20,6 @@ from typing import Dict, List, Tuple
 import torch
 
 Spec = List[Tuple[str, Tuple[int, ...]]]
-# the last norm of each MBConv residual branch, and the three convolutions
-# whose outputs a softmax over the depth bins turns into a distribution
-# (DepthNet's depth head, the stereo volume's head, the MIE's last conv)
-DAMPED = ("linear_conv.bn.weight", "linear_conv.bn.bias",
-          "depth_net.depth_conv.5.weight", "depth_net.depth_conv.5.bias",
-          "classif3_2.0.weight", "volume_interaction.redir2.weight",
-          "volume_interaction.redir2.bias")
 DAMPING = 0.3
 
 
@@ -56,8 +38,11 @@ def generator(seed: int, device, stream: int = 0) -> torch.Generator:
 
 
 @torch.no_grad()
-def make(spec: Spec, seed: int, device) -> Dict[str, torch.Tensor]:
-    """float32 tensors by name, views of one buffer drawn from ``seed``."""
+def make(spec: Spec, seed: int, device,
+         damped: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+    """float32 tensors by name, views of one buffer drawn from ``seed``;
+    those whose names end in one of ``damped`` at ``DAMPING`` of their
+    scale."""
     total = sum(math.prod(s) for _, s in spec)
     flat = torch.rand(total, generator=generator(seed, device, 0),
                       device=device)
@@ -82,7 +67,7 @@ def make(spec: Spec, seed: int, device) -> Dict[str, torch.Tensor]:
             sym.mul_(0.17).add_(1.0)
         else:  # a bias
             sym.mul_(0.17)
-        if name.endswith(DAMPED):
+        if name.endswith(tuple(damped)):
             sym.mul_(DAMPING)
         out[name] = u
     return out
