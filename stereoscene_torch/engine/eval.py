@@ -3,11 +3,13 @@
 
 The prediction follows ``simple_test`` (ref: bevdepth_occupancy.py:275-297):
 the head's logits in fp32, upsampled trilinearly (align_corners=False) to
-the ground truth's grid, then argmax, then the metric update. On a sharded
-grid (``parallel.spatial``) the model gathers the logits on every space
-rank, and only the first space rank of each sample updates the metric
-state, so each frame is scored once when the states are summed over the
-ranks.
+the ground truth's grid, then argmax, then the metric update
+(``BEVDepthOccupancy.class_scores``; with the Mask2Former head, OccFormer's
+``simple_test``: the mask logits upsampled to that grid, then
+``semantic_inference``). On a sharded grid (``parallel.spatial``)
+the model gathers the logits on every space rank, and only the first space
+rank of each sample updates the metric state, so each frame is scored once
+when the states are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ import torch
 
 from .. import metrics as ssc_metrics
 from .. import parallel
-from ..ops.resize import resize_trilinear
 
 
 def make_eval_step(gt_shape: Tuple[int, int, int] = (256, 256, 32)
@@ -34,12 +35,10 @@ def make_eval_step(gt_shape: Tuple[int, int, int] = (256, 256, 32)
     def eval_step(model, batch: Dict[str, torch.Tensor],
                   state: Dict[str, torch.Tensor], use_kernel=None):
         model.eval()
-        logits = model(batch, use_kernel=use_kernel)["output_voxels"].float()
         target = (tuple(batch["gt_occ"].shape[1:4]) if "gt_occ" in batch
                   else tuple(gt_shape))
-        if tuple(logits.shape[1:4]) != target:
-            logits = resize_trilinear(logits, target)
-        pred = logits.argmax(-1)
+        pred = model.class_scores(model(batch, use_kernel=use_kernel),
+                                  target).argmax(-1)
         if "gt_occ" in batch and parallel.space_rank() == 0:
             state = ssc_metrics.update_state(state, pred, batch["gt_occ"])
         return pred, state

@@ -147,7 +147,14 @@ def create_train_state(
     when asked for), put it in training mode, and make its optimizer.
     Parameters that ``frozen_predicate`` names get no update and take no
     part in the clip's norm (optax ``multi_transform`` with
-    ``set_to_zero``); their BatchNorm statistics still update."""
+    ``set_to_zero``); their BatchNorm statistics still update. A detector
+    with the Mask2Former head is refused: its training (the Hungarian match
+    and the loss over every decoder layer) is not supported yet."""
+    head = getattr(getattr(model, "cfg", None), "head_type", "OccHead")
+    if head != "OccHead":
+        raise NotImplementedError(
+            f"training the {head} head is not supported yet: it serves and "
+            f"evaluates only")
     model.to(torch.device("cuda") if device is None else device)
     model.train()
     frozen = frozen_predicate or (lambda name: False)

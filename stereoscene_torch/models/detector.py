@@ -45,13 +45,25 @@ group (``models/occhead.py``).
 ``resnet_depth`` picks the 3D encoder's blocks (BasicBlock at 10/18/34,
 Bottleneck at 50/101, whose stages are 4x ``voxel_channels`` wide); the
 voxel neck and CRP3D take each stage's real width.
+
+``head_type`` picks the head. ``OccHead`` (the default) is StereoScene's:
+SECONDFPN3D over the 3D encoder's stages, then the 3D conv head, and
+``output_voxels``. ``Mask2FormerOccHead`` is OccFormer's query-based head
+(``models/mask2former_occ.py``, built with the keyword arguments of
+``mask_head``) straight on the 3D encoder's pyramid, with no voxel neck: the forward gives
+``cls_logits`` [B, Q, classes + 1] and ``mask_logits`` [B, Q, X, Y, Z]
+(fp32), and the class map is OccFormer's test path, the mask logits
+upsampled trilinearly to the label grid, ``semantic_inference``, then
+argmax (``BEVDepthOccupancy.class_scores``). It serves and evaluates; it
+does not train yet (``engine.train.create_train_state`` refuses it), and
+it runs on the whole grid only (no spatial sharding, no point branch).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -66,9 +78,22 @@ from .depth_net import BasicBlock2d
 from .efficientnet import CustomEfficientNet
 from .layers import checkpoint_region, remat
 from .lss import ViewTransformerLiftSplatShootVoxel
+from .mask2former_occ import Mask2FormerOccHead, semantic_inference
 from .occhead import OccHead
 from .resnet3d import CustomResNet3D, stage_widths
 from .second_fpn import SECONDFPN, SECONDFPN3D
+
+
+MASK_HEAD = "Mask2FormerOccHead"
+# a reference-style config's Mask2FormerOccHead entry -> the head's keywords
+MASK_HEAD_KEYS = {"num_queries": "num_queries",
+                  "feat_channels": "embed_dim",
+                  "num_decoder_layers": "num_layers",
+                  "num_heads": "num_heads",
+                  "num_decoder_heads": "decoder_heads",
+                  "num_feat_levels": "num_feat_levels",
+                  "num_encoder_layers": "num_encoder_layers",
+                  "feedforward_channels": "ffn_dim"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +107,9 @@ class DetectorConfig:
     ``crp_mega_shape`` must
     divide the grid of stage ``crp_level`` = 2 (the flagship's 16x16x2
     takes (8, 8, 1), which matches ``relation_label_shape`` (16, 16, 2) of
-    the pipeline)."""
+    the pipeline). ``head_type`` and ``mask_head`` (the Mask2Former head's
+    keyword arguments, unused by ``OccHead``) are the port's own: the JAX
+    package has one head."""
 
     input_size: Tuple[int, int] = (384, 1280)
     downsample: int = 8
@@ -116,6 +143,8 @@ class DetectorConfig:
     crp3d: bool = False
     crp_mega_shape: Tuple[int, int, int] = (32, 32, 4)
     supervise_points: bool = False
+    head_type: str = "OccHead"
+    mask_head: Optional[Dict[str, int]] = None
 
     @property
     def num_depth(self) -> int:
@@ -142,7 +171,20 @@ class DetectorConfig:
         grid, data = vt["grid_config"], vt["data_config"]
         bb, neck = model["img_backbone"], model["img_neck"]
         bev_bb = model["img_bev_encoder_backbone"]
-        bev_neck = model["img_bev_encoder_neck"]
+        head = model["pts_bbox_head"]
+        if head["type"] == MASK_HEAD:
+            fields = dict(head_type=MASK_HEAD,
+                          out_channel=head["num_occupancy_classes"],
+                          mask_head={v: head[k] for k, v in
+                                     MASK_HEAD_KEYS.items() if k in head})
+        else:
+            bev_neck = model["img_bev_encoder_neck"]
+            fields = dict(
+                voxel_out_channels=tuple(bev_neck["out_channels"]),
+                fpn3d_upsample_strides=tuple(bev_neck["upsample_strides"]),
+                out_channel=head["out_channel"])
+        if "block_strides" in bev_bb:
+            fields["voxel_strides"] = tuple(bev_bb["block_strides"])
         return cls(
             input_size=tuple(data["input_size"]),
             downsample=vt["downsample"],
@@ -161,12 +203,10 @@ class DetectorConfig:
             cam_channels=vt["cam_channels"],
             voxel_channels=tuple(bev_bb["block_inplanes"]),
             voxel_out_indices=tuple(bev_bb["out_indices"]),
-            voxel_out_channels=tuple(bev_neck["out_channels"]),
-            fpn3d_upsample_strides=tuple(bev_neck["upsample_strides"]),
-            out_channel=model["pts_bbox_head"]["out_channel"],
             resnet_depth=bev_bb["depth"],
             use_grid_mask=model.get("use_grid_mask", False),
             norm_groups=bev_bb.get("norm_cfg", {}).get("num_groups", 32),
+            **fields,
         )
 
 
@@ -201,13 +241,26 @@ class BEVDepthOccupancy(nn.Module):
             conv3d_kernel=conv3d_kernel, crp3d=cfg.crp3d,
             crp_mega_shape=cfg.crp_mega_shape,
             out_indices=cfg.voxel_out_indices)
-        self.img_bev_encoder_neck = SECONDFPN3D(
-            stage_widths(cfg.resnet_depth, cfg.voxel_channels),
-            cfg.voxel_out_channels, cfg.fpn3d_upsample_strides,
-            cfg.norm_groups)
-        self.pts_bbox_head = OccHead(sum(cfg.voxel_out_channels),
-                                     cfg.out_channel, cfg.norm_groups,
-                                     supervise_points=cfg.supervise_points)
+        widths = stage_widths(cfg.resnet_depth, cfg.voxel_channels)
+        self.mask_head = cfg.head_type == MASK_HEAD
+        if self.mask_head:
+            if cfg.supervise_points:
+                raise ValueError(f"{MASK_HEAD} has no point branch")
+            self.pts_bbox_head = Mask2FormerOccHead(
+                [widths[i] for i in cfg.voxel_out_indices],
+                num_classes=cfg.out_channel,
+                device=torch.device("cuda") if device is None else device,
+                **(cfg.mask_head or {}))
+        elif cfg.head_type == "OccHead":
+            self.img_bev_encoder_neck = SECONDFPN3D(
+                widths, cfg.voxel_out_channels, cfg.fpn3d_upsample_strides,
+                cfg.norm_groups)
+            self.pts_bbox_head = OccHead(
+                sum(cfg.voxel_out_channels), cfg.out_channel,
+                cfg.norm_groups, supervise_points=cfg.supervise_points)
+        else:
+            raise ValueError(f"unknown head_type {cfg.head_type!r} (OccHead "
+                             f"or {MASK_HEAD})")
         if cfg.imgseg:
             n = sum(cfg.neck_out_channels)
             self.imgseg_block0 = BasicBlock2d(n)
@@ -289,27 +342,35 @@ class BEVDepthOccupancy(nn.Module):
     def check_sharding(self) -> None:
         """Raise, by name, where this model cannot run on the space group's
         layout: a grid X that does not divide into slabs at every stride
-        of the 3D encoder."""
+        of the 3D encoder, or the Mask2Former head (whole grid only)."""
         if spatial.active():
+            if self.mask_head:
+                raise ValueError(f"{MASK_HEAD} runs on the whole grid only, "
+                                 "not on a space group's slabs")
             spatial.check_grid(self.cfg.grid_shape[0],
                                self.voxel_total_stride)
 
     # ---- stage 3: 3D encoder + head ----
     def bev_encode(self, voxel_feat):
-        """[B, C, X, Y, Z] -> logits [B, classes, X, Y, Z]."""
+        """[B, C, X, Y, Z] -> logits [B, classes, X, Y, Z] (the Mask2Former
+        head: its output dict)."""
         return self.bev_outputs(voxel_feat)[0]
 
     def bev_outputs(self, voxel_feat, points=None, img_feats=None,
                     points_uv=None):
         """-> (logits [B, classes, X, Y, Z], point logits [B, P, classes]
         or None, CRP relation logits or None); the point branch runs where
-        ``points`` are given."""
+        ``points`` are given. The Mask2Former head gives its output dict
+        (``cls_logits``, ``mask_logits``, ``aux``) in the logits' place."""
         cp = self.cfg.bev_with_cp
         with span("stereoscene.bev"):
             outs = remat(cp, self.img_bev_encoder_backbone, voxel_feat)
             crp_logits = points_out = None
             if self.cfg.crp3d:
                 outs, crp_logits = outs
+            if self.mask_head:  # channels-last levels, high-res first
+                return self.pts_bbox_head(
+                    [f.permute(0, 2, 3, 4, 1) for f in outs]), None, crp_logits
             fused = remat(cp, self.img_bev_encoder_neck, outs)
             if self.cfg.supervise_points and points is not None:
                 points_out = self.pts_bbox_head.forward_points(
@@ -342,7 +403,9 @@ class BEVDepthOccupancy(nn.Module):
         [B, P, classes] (for a batch with points_occ), imgseg_logits
         [B, fH, fW, imgseg_class] and crp_logits [B, 4, V, M]. (The JAX
         package returns those three as None when off; here they are left
-        out, so every value of the dict is a tensor.)
+        out, so every value of the dict is a tensor.) The Mask2Former head
+        gives cls_logits [B, Q, classes + 1] and mask_logits [B, Q, X, Y, Z]
+        (fp32) in output_voxels' place.
 
         Eval mode: inference without autograd, in the parameters' dtype,
         over the batch's plan (built and cached when missing). Training
@@ -375,6 +438,12 @@ class BEVDepthOccupancy(nn.Module):
                 points_uv = batch["points_uv"][..., :2]
         logits, output_points, crp_logits = self.bev_outputs(
             voxel_feat, points, feat_left, points_uv)
+        if self.mask_head:
+            out = {"cls_logits": logits["cls_logits"],
+                   "mask_logits": logits["mask_logits"],
+                   "depth_prob": depth_prob, "imgseg_logits": imgseg_logits,
+                   "crp_logits": crp_logits}
+            return {k: v for k, v in out.items() if v is not None}
         logits = logits.permute(0, 2, 3, 4, 1)
         if not self.training:
             logits = spatial.gather_slabs(logits, dim=1)
@@ -389,10 +458,28 @@ class BEVDepthOccupancy(nn.Module):
     def infer(self, batch: Dict[str, torch.Tensor],
               use_kernel=None) -> torch.Tensor:
         """Class map [B, *label_shape] (int64): fp32 logits upsampled
-        trilinearly to the label grid, then argmax (bench.py:195-200)."""
+        trilinearly to the label grid, then argmax (bench.py:195-200); the
+        Mask2Former head: argmax of its ``class_scores`` on the label grid
+        (OccFormer's ``simple_test``)."""
         with span("stereoscene.infer"):
-            logits = self.forward(batch, use_kernel)["output_voxels"]
+            out = self.forward(batch, use_kernel)
             with span("stereoscene.classmap"):
-                return resize_trilinear(logits.float(),
-                                        self.label_shape).argmax(-1)
+                return self.class_scores(out, self.label_shape).argmax(-1)
+
+    def class_scores(self, out: Dict[str, torch.Tensor],
+                     shape) -> torch.Tensor:
+        """fp32 class scores [B, *shape, classes] of ``forward``'s outputs
+        on the grid ``shape``: the logits resized trilinearly; the
+        Mask2Former head: OccFormer's ``simple_test``, the mask logits
+        resized trilinearly, then ``semantic_inference``."""
+        shape = tuple(shape)
+        if self.mask_head:
+            masks = out["mask_logits"].float()
+            if tuple(masks.shape[2:]) != shape:
+                masks = resize_trilinear(masks[..., None], shape)[..., 0]
+            return semantic_inference(out["cls_logits"], masks)
+        logits = out["output_voxels"].float()
+        if tuple(logits.shape[1:4]) != shape:
+            logits = resize_trilinear(logits, shape)
+        return logits
 

@@ -13,6 +13,10 @@ mask2former_occ.py:22-449, pixel_decoders/occupancy_pixel_decoder.py).
 - ``hungarian_match`` on the host (scipy), ``mask_match_cost`` and the
   Hungarian-matched mask-classification loss over every decoder layer.
 
+The head opens ``stereoscene.head.encoder`` around the pixel decoder and
+``stereoscene.head.decoder`` around the query decoder while a profiler
+runs (``utils.spans``).
+
 Tensors are channels-last as in JAX ([B, X, Y, Z, C] volumes, [B, Q, C]
 queries). Every norm is flax's: LayerNorm and GroupNorm with eps 1e-6 in
 fp32 (``LayerNorm32``, ``GroupNorm32``), not the package's default eps
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 
 from ..ops.msdeform_attn import msdeform_attn_3d
 from ..ops.resize import resize_trilinear
+from ..utils.spans import span
 from . import layers
 from .bevformer import LayerNorm32
 from .vit import Attention
@@ -252,15 +257,17 @@ class MaskedCrossAttention(nn.Module):
 
 class DecoderLayer(nn.Module):
     """Masked cross-attn -> self-attn -> FFN, post-norm (mmcv's
-    ('cross_attn', 'norm', 'self_attn', 'norm', 'ffn', 'norm'))."""
+    ('cross_attn', 'norm', 'self_attn', 'norm', 'ffn', 'norm')); the FFN's
+    hidden width ``ffn_dim``, 4x ``embed_dim`` where None."""
 
-    def __init__(self, embed_dim: int, num_heads: int = 8):
+    def __init__(self, embed_dim: int, num_heads: int = 8,
+                 ffn_dim: Optional[int] = None):
         super().__init__()
         self.cross_attn = MaskedCrossAttention(embed_dim, num_heads)
         self.norm1 = LayerNorm32(embed_dim)
         self.self_attn = Attention(embed_dim, num_heads)
         self.norm2 = LayerNorm32(embed_dim)
-        self.ffn = FFN(embed_dim, embed_dim * 4)
+        self.ffn = FFN(embed_dim, ffn_dim or embed_dim * 4)
         self.norm3 = LayerNorm32(embed_dim)
 
     def forward(self, queries, query_pos, feats, feat_pos, attn_mask):
@@ -278,15 +285,24 @@ class Mask2FormerOccHead(nn.Module):
     derives ``num_feat_levels`` levels by stride-2 average pooling (a
     level whose smallest side is below 2 repeats the one before). A
     sequence: forward takes that many volumes, high-res first (the
-    backbone pyramid), with those channels. Built on the CUDA card unless
-    ``device`` says otherwise.
+    backbone pyramid), with those channels. ``num_heads`` is the deformable
+    pixel decoder's, ``decoder_heads`` the query decoder's (``num_heads``
+    where None); ``ffn_dim``: the decoder layers' FFN width (4x
+    ``embed_dim`` where None). Built on the CUDA card unless ``device``
+    says otherwise.
+
+    The forward gives ``cls_logits``, ``mask_logits``, ``aux`` (the earlier
+    predictions) and ``attn_masks``: the attention mask [B, Q, V] that each
+    decoder layer was given (True = not attended).
     """
 
     def __init__(self, in_channels: Union[int, Sequence[int]],
                  num_queries: int = 50, embed_dim: int = 64,
                  num_layers: int = 3, num_classes: int = 20,
                  num_heads: int = 8, num_feat_levels: int = 2,
-                 num_encoder_layers: int = 2, device=None):
+                 num_encoder_layers: int = 2,
+                 ffn_dim: Optional[int] = None,
+                 decoder_heads: Optional[int] = None, device=None):
         super().__init__()
         self.single = isinstance(in_channels, int)
         levels = ([in_channels] * num_feat_levels if self.single
@@ -309,7 +325,8 @@ class Mask2FormerOccHead(nn.Module):
             setattr(self, f"mask_head{i}", nn.Linear(embed_dim, embed_dim))
         self.decoder_norm = LayerNorm32(embed_dim)
         for i in range(num_layers):
-            setattr(self, f"layer{i}", DecoderLayer(embed_dim, num_heads))
+            setattr(self, f"layer{i}", DecoderLayer(
+                embed_dim, decoder_heads or num_heads, ffn_dim))
         self.to(torch.device("cuda") if device is None else device)
 
     def pyramid(self, voxel_feats):
@@ -347,9 +364,15 @@ class Mask2FormerOccHead(nn.Module):
 
     def forward(self, voxel_feats):
         feats = self.pyramid(voxel_feats)
-        b = feats[0].shape[0]
-        mask_feats, memories = self.pixel_decoder(feats)
-        c = mask_feats.shape[-1]
+        with span("stereoscene.head.encoder"):
+            mask_feats, memories = self.pixel_decoder(feats)
+        with span("stereoscene.head.decoder"):
+            return self.decode(mask_feats, memories)
+
+    def decode(self, mask_feats, memories):
+        """The query decoder over the pixel decoder's outputs: the first
+        prediction, then each layer and its prediction."""
+        b, c = mask_feats.shape[0], mask_feats.shape[-1]
         levels = memories[:self.num_feat_levels]
         dec_feats, dec_pos, level_shapes = [], [], []
         for i, m in enumerate(levels):
@@ -366,8 +389,10 @@ class Mask2FormerOccHead(nn.Module):
         cls_logits, mask_logits, attn_mask = self.predict(q, mask_feats,
                                                           level_shapes[0])
         aux = [(cls_logits, mask_logits.reshape(b, self.num_queries, -1))]
+        attn_masks = []
         for i in range(self.num_layers):
             lvl = i % self.num_feat_levels
+            attn_masks.append(attn_mask)
             q = getattr(self, f"layer{i}")(q, qp, dec_feats[lvl],
                                            dec_pos[lvl].to(dtype), attn_mask)
             cls_logits, mask_logits, attn_mask = self.predict(
@@ -376,7 +401,8 @@ class Mask2FormerOccHead(nn.Module):
                         mask_logits.reshape(b, self.num_queries, -1)))
         return {"cls_logits": cls_logits,        # [B, Q, num_classes + 1]
                 "mask_logits": mask_logits,      # [B, Q, X, Y, Z]
-                "aux": aux[:-1]}
+                "aux": aux[:-1],
+                "attn_masks": attn_masks}        # a [B, Q, V] a layer
 
 
 def semantic_inference(cls_logits, mask_logits):

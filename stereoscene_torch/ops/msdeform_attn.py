@@ -15,7 +15,8 @@ to the values' dtype before the product, as the JAX package multiplies its
 values by fp32 weights.
 
 This is plain torch on every device: the JAX package computes it with XLA
-gathers, not a Pallas kernel.
+gathers, not a Pallas kernel. Each ``msdeform_attn_3d`` call opens the span
+``stereoscene.msdeform`` while a profiler runs (``utils.spans``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import itertools
 from typing import Sequence, Tuple
 
 import torch
+
+from ..utils.spans import span
 
 
 def _sample_level(flat: torch.Tensor, loc: torch.Tensor, attn: torch.Tensor,
@@ -115,5 +118,6 @@ def msdeform_attn_3d(value: torch.Tensor,
     with X outermost); spatial_shapes the (X, Y, Z) of each level;
     sampling_locations [B, Q, heads, levels, P, 3] as (x, y, z) in [0, 1].
     Returns [B, Q, C]."""
-    return _msdeform(value, spatial_shapes, sampling_locations,
-                     attention_weights, num_heads, _geometry_3d)
+    with span("stereoscene.msdeform"):
+        return _msdeform(value, spatial_shapes, sampling_locations,
+                         attention_weights, num_heads, _geometry_3d)

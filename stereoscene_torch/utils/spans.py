@@ -14,7 +14,11 @@ only switch.
   ``.images.replay`` where the image backbone replays its CUDA graph, and
   ``.images.capture`` the one time it captures it), ``.view`` (with
   ``.view.stereo``, ``.view.depth``, ``.view.mie``, ``.view.splat``),
-  ``.bev`` and ``.classmap``; the stage spans open in training too, and a
+  ``.bev`` (with, under a Mask2Former head, ``.head.encoder``, the pixel
+  decoder, and ``.head.decoder``, the query decoder's predictions and
+  layers) and ``.classmap``; ``stereoscene.msdeform`` opens at each call
+  of the 3D deformable attention (``ops.msdeform_attn.msdeform_attn_3d``),
+  wherever it is called from; the stage spans open in training too, and a
   checkpointed block's recompute opens them again inside the backward;
 - training, once a step: ``stereoscene.forward`` (the model and the
   losses), ``stereoscene.backward`` (``torch.autograd.grad``),
@@ -43,6 +47,9 @@ SPANS = (
     "stereoscene.view.mie",
     "stereoscene.view.splat",
     "stereoscene.bev",
+    "stereoscene.head.encoder",
+    "stereoscene.head.decoder",
+    "stereoscene.msdeform",
     "stereoscene.classmap",
     "stereoscene.forward",
     "stereoscene.backward",

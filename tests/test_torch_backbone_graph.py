@@ -60,6 +60,16 @@ class _StandInGraph:
             static.copy_(fresh)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several pytest workers on the
+    CPU at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def stand_in(monkeypatch):
     backend = StandInGraphs()

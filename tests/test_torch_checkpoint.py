@@ -23,6 +23,16 @@ from tests.test_torch_modules import port_model
 KEY = "semkitti_combined_IoU"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several pytest workers on the
+    CPU at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _grads(state, seed):
     gen = torch.Generator().manual_seed(seed)
     return [torch.randn(p.shape, generator=gen) for _, p in state.trainable]

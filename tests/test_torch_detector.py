@@ -24,6 +24,16 @@ from tests.test_torch_modules import japply, port_model, to_flax
 LABEL_SHAPE = (16, 16, 8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several pytest workers on the
+    CPU at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pair():
     batch = _tiny_batch(b=2, rng=np.random.RandomState(3))
@@ -113,10 +123,13 @@ def test_load_flax_params_is_strict(pair):
 
 
 def test_config_defaults_match_jax():
-    """Same fields and defaults as the JAX DetectorConfig; the flagship grid
-    of 0.8 m voxels is 64x64x8 and D = 112."""
-    assert dataclasses.asdict(DetectorConfig()) == dataclasses.asdict(
-        JaxConfig())
+    """Same fields and defaults as the JAX DetectorConfig, beside the
+    port's own head fields, whose default is the JAX package's one head;
+    the flagship grid of 0.8 m voxels is 64x64x8 and D = 112."""
+    fields = dataclasses.asdict(DetectorConfig())
+    want = dataclasses.asdict(JaxConfig())
+    assert {k: fields[k] for k in want} == want
+    assert (fields["head_type"], fields["mask_head"]) == ("OccHead", None)
     cfg = DetectorConfig()
     assert cfg.grid_shape == JaxConfig().grid_shape == (64, 64, 8)
     assert cfg.num_depth == 112 and cfg.feature_size == (48, 160)

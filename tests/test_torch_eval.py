@@ -39,6 +39,16 @@ TINY_CFG = os.path.join(ROOT, "stereoscene_torch", "configs",
 FRAMES = ("000000", "000005", "000010")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several pytest workers on the
+    CPU at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     root, ann = write_semkitti_tree(str(tmp_path_factory.mktemp("semkitti")),

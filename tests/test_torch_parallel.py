@@ -64,6 +64,16 @@ W = 2
 LOSSES = ("ce_ssc_loss", "sem_scal_loss", "geo_scal_loss", "bce_depth_loss")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several pytest workers on the
+    CPU at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _data():
     rng = np.random.RandomState(0)
 

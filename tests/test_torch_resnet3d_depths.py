@@ -123,7 +123,10 @@ def test_depth50_detector_matches_jax():
     assert model.img_bev_encoder_neck.deblocks[2][0].weight.shape[0] == 128
     params, stats = weights.flax_trees(model)
     batch = _tiny_batch(b=1, rng=np.random.RandomState(4))
-    jm = JaxModel(cfg=JaxConfig(**dataclasses.asdict(cfg)))
+    jax_fields = {f.name for f in dataclasses.fields(JaxConfig)}
+    jm = JaxModel(cfg=JaxConfig(**{k: v for k, v in
+                                   dataclasses.asdict(cfg).items()
+                                   if k in jax_fields}))
     want = japply(jm, {"params": params, "batch_stats": stats}, batch,
                   train=False)
     got = model({k: torch.from_numpy(np.array(v)) for k, v in batch.items()})

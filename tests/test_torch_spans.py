@@ -81,6 +81,16 @@ def traced(fn):
     return out, ranges(prof)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several pytest workers on the
+    CPU at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def model():
     torch.manual_seed(0)

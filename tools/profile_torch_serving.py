@@ -1,11 +1,13 @@
 """Where the time of a bf16 serving request of the PyTorch port goes, by
 the program's own spans.
 
-Builds the published SemanticKITTI detector of ``stereoscene_torch``
-(``configs/stereoscene_semantickitti.py``: 128x128x16 grid; seeded random
-weights, bf16, kernels on), answers warm-up requests on seeded frames at
-the flagship calibration (the first builds the splat plan), then traces
-``--requests`` more under ``torch.profiler`` and prints:
+Builds a detector of ``stereoscene_torch`` from ``--config`` (by default
+the published SemanticKITTI model, ``configs/stereoscene_semantickitti.py``:
+128x128x16 grid; ``configs/stereoscene_m2f_kitti.py`` gives its trunk with
+the Mask2Former head; seeded random weights, bf16, kernels on), answers
+warm-up requests on seeded frames at the flagship calibration (the first
+builds the splat plan), then traces ``--requests`` more under
+``torch.profiler`` and prints:
 
 - for each span the program opened (``stereoscene_torch.utils.spans``):
   device ms a request of the operations launched inside it, the device's
@@ -14,7 +16,8 @@ the flagship calibration (the first builds the splat plan), then traces
 
 Run from the repository root on a machine with a CUDA card:
 
-    python tools/profile_torch_serving.py [--requests 3] [--out DIR]
+    python tools/profile_torch_serving.py [--config CONFIG] [--requests 3]
+        [--out DIR]
 
 The kernel table and the chrome trace, with the spans, go under ``--out``.
 """
@@ -66,6 +69,7 @@ def span_table(trace, requests: int) -> list:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default=CONFIG)
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
@@ -77,7 +81,7 @@ def main() -> None:
         check=True).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
     dev = torch.device("cuda", 0)
-    cfg = DetectorConfig.from_config(Config.fromfile(CONFIG))
+    cfg = DetectorConfig.from_config(Config.fromfile(args.config))
     model = BEVDepthOccupancy(cfg)
     seeded_init_(model, 0)
     model.to(dev, torch.bfloat16)
