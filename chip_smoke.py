@@ -863,6 +863,87 @@ def phase_take_rows(dev, gather) -> dict:
     return dict(max_abs_err=0.0, **total)
 
 
+# phase 4d: the m2f cell's deformable attention call: its levels, queries
+# (one a value row), heads, points and width
+MSDEFORM_LEVELS = ((64, 64, 8), (32, 32, 4), (16, 16, 2))
+MSDEFORM_HEADS, MSDEFORM_POINTS, MSDEFORM_C = 8, 4, 192
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) one call of ``fn``
+    launches, by torch.profiler after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_msdeform(dev, msdeform_attn) -> dict:
+    """The 3D deformable attention kernel at the m2f cell's shapes (bf16
+    values and weights, fp32 locations about each query's cell) against its
+    plain route: its gap to a float32 run of the plain route within the
+    plain route's own, the whole call's and the kernel's device ms beside
+    the plain route's, the device operations of each and the bound (the
+    benchmark's count of the call: values, locations, weights and output
+    once)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    shapes, heads, points, c = (MSDEFORM_LEVELS, MSDEFORM_HEADS,
+                                MSDEFORM_POINTS, MSDEFORM_C)
+    n = sum(x * y * z for x, y, z in shapes)
+    value = torch.randn(1, n, c, generator=gen, device=dev).bfloat16()
+    # each query's cell centre, offset by 1.7 cells' standard deviation at
+    # every level, as the benchmark's seeded weights sample
+    refs = []
+    for x, y, z in shapes:
+        grid = torch.meshgrid(*((torch.arange(k, device=dev) + 0.5) / k
+                                for k in (x, y, z)), indexing="ij")
+        refs.append(torch.stack(grid, -1).reshape(-1, 3))
+    size = torch.tensor(shapes, dtype=torch.float32, device=dev)
+    loc = torch.cat(refs)[None, :, None, None, None] + 1.7 * torch.randn(
+        1, n, heads, len(shapes), points, 3, generator=gen,
+        device=dev) / size[:, None]
+    attn = torch.softmax(torch.randn(1, n, heads, len(shapes) * points,
+                                     generator=gen, device=dev), -1)
+    attn = attn.bfloat16().reshape(1, n, heads, len(shapes), points)
+
+    def call(use_kernel=None):
+        return msdeform_attn.msdeform_attn_3d(value, shapes, loc, attn,
+                                              heads, use_kernel)
+
+    got, plain = call(), call(False)
+    ref = msdeform_attn.msdeform_attn_3d(value.float(), shapes, loc,
+                                         attn.float(), heads, False)
+    scale = float(ref.abs().max())
+    gap, plain_gap = max_err(got, ref), max_err(plain, ref)
+    if not gap <= plain_gap + 1e-5 * scale:
+        raise AssertionError(f"msdeform_attn_3d kernel: gap to float32 "
+                             f"{gap:.3e} above the plain route's "
+                             f"{plain_gap:.3e}")
+    ms = cuda_ms(call)
+    device = kernel_ms(call, "msdeform3d")
+    plain_ms = cuda_ms(lambda: call(False), iters=5)
+    ops, plain_ops = device_ops(call), device_ops(lambda: call(False))
+    samples = n * heads * len(shapes) * points
+    work = bound(nbytes(value, loc, attn, got),
+                 samples * 8 * (c // heads) * 2, torch.bfloat16)
+    kernel = "not measured" if device is None else f"{device:.4f} ms"
+    share = "" if device is None else \
+        f", {100 * work['bound_ms'] / device:.2f}% of the bound"
+    print(f"phase 4d msdeform_attn_3d value [1, {n}, {c}] bf16, {heads} "
+          f"heads x {len(shapes)} levels {list(shapes)} x {points} points: "
+          f"gap to float32 {gap:.3e} (plain route {plain_gap:.3e}, max|ref| "
+          f"{scale:.3f}); whole call {ms:.4f} ms (the kernel's device time "
+          f"{kernel}{share}), {ops} device op(s); plain {plain_ms:.4f} ms, "
+          f"{plain_ops} device ops; bound {work['bound_ms']:.5f} ms "
+          f"({work['bound_by']})", flush=True)
+    return dict(max_abs_err=gap, ms=ms, kernel_ms=device, plain_ms=plain_ms,
+                device_ops=ops, plain_device_ops=plain_ops, **work)
+
+
 def lidar_scan(rng, n: int, raw_ids) -> tuple:
     """A seeded velodyne sweep of ``n`` points (x forward, y left, z up,
     reflectance; float32 [n, 4]) and its lidarseg labels (uint32: a raw id
@@ -2488,7 +2569,8 @@ def phase_nuscenes(dev, build, card: str) -> dict:
     queue, decoding and scoring), (b) the Mask2Former occupancy head at the
     JAX defaults (against the CPU at 50x50x4; forward and training at
     200x200x16), (c) ``batched_nms`` and ``decode_nms_free`` against the
-    CPU. No kernel lies on this path; returns the launches counted in it."""
+    CPU. The head's deformable attention takes its kernel under no-grad and
+    the plain gathers in training; returns the launches counted in it."""
     from stereoscene_torch.core import bbox3d
     from stereoscene_torch.core.nuscenes_eval import (
         DETECTION_CLASSES,
@@ -2749,8 +2831,10 @@ def phase_nuscenes(dev, build, card: str) -> dict:
         m2f_ms, m2f_losses = [], []
         for _ in range(2):
             t0 = time.perf_counter()
+            # the deformable attention's kernel is forward-only
             losses = mask2former_occ.mask2former_loss_all_layers(
-                head(x), tgt_masks, classes.expand(1, n_cls), tgt_valid)
+                head(x, use_kernel=False), tgt_masks,
+                classes.expand(1, n_cls), tgt_valid)
             opt.zero_grad(set_to_none=True)
             sum(losses.values()).backward()
             opt.step()
@@ -2826,9 +2910,8 @@ def phase_nuscenes(dev, build, card: str) -> dict:
           f"[1, 900, 10] -> 300: labels and the in-range mask equal to the "
           f"CPU's ({int(dec['valid'].sum())} in range), scores and boxes "
           f"within {', '.join(f'{v:.2e}' for v in dec_err.values())} of "
-          f"max|ref| (1e-6 held); phase 13 kernel launches "
-          f"{launches or 'none (no TPU kernel lies on this path)'}; phase 13 "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+          f"max|ref| (1e-6 held); phase 13 kernel launches {launches}; "
+          f"phase 13 {time.perf_counter() - t_start:.1f} s", flush=True)
     torch.backends.cudnn.allow_tf32 = True
     torch.cuda.empty_cache()
     return launches
@@ -3741,6 +3824,7 @@ def main() -> None:
         deform_conv,
         gather,
         gwc,
+        msdeform_attn,
         voxel_pool,
     )
     from stereoscene_torch.utils.weights import seeded_init_
@@ -3774,6 +3858,7 @@ def main() -> None:
     k4 = phase_conv3d(dev, conv3d)
     p1 = phase_dcn(model, dev, deform_conv)
     p2 = phase_take_rows(dev, gather)
+    m1 = phase_msdeform(dev, msdeform_attn)
 
     phase_fp32_forward(model, _frames.frame(cfg, dev, SEED), _build)
     serving, _ = phase_serve(model, cfg, dev, _build, card)
@@ -3823,6 +3908,7 @@ def main() -> None:
             ("optional branches", optional, ("gwc_warp", "dcn_gather")),
             ("bev_with_cp and DepthNetStereo", variants,
              ("gwc_warp", "dcn_gather")),
+            ("nuScenes", nuscenes, ("msdeform_attn_3d",)),
             ("highres", highres, ("gwc_warp", "dcn_gather", "conv3d_s1",
                                   "lift_splat_fused")),
             ("ResNet3D depths", depths, ("gwc_warp", "dcn_gather",
@@ -3848,6 +3934,9 @@ def main() -> None:
              replaces="tools/probe_pallas_dcn.py:125", **p1),
         dict(name="take_rows", source="stereoscene_torch/csrc/gather.cu",
              replaces="tools/probe_gather.py:27", **p2),
+        dict(name="msdeform_attn_3d",
+             source="stereoscene_torch/csrc/msdeform.cu",
+             replaces="none (the JAX package's XLA gathers)", **m1),
     ]
     for k in kernels:
         k["route"] = "cuda"

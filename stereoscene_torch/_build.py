@@ -59,6 +59,9 @@ SIGNATURES = {
     "dcn_gather": ("stereoscene_dcn_gather", [_P] * 3 + [_I] * 13),
     # feat, idx, out, M, C, R, idx_col_stride
     "take_rows": ("stereoscene_take_rows", [_P] * 3 + [_I] * 4),
+    # value, loc, attn, out, B, N, Q, H, ch, L, P, bf16, then (X, Y, Z,
+    # first row) of 4 levels
+    "msdeform_attn_3d": ("stereoscene_msdeform3d", [_P] * 4 + [_I] * 24),
 }
 
 launch_counts: "collections.Counter[str]" = collections.Counter()

@@ -20,8 +20,9 @@ a batch with ``points_occ``.
 The batch is the JAX package's dict (channels-last images, KITTI 3x4
 intrinsics; see ``BEVDepthOccupancy.forward``) as torch tensors on one
 device. ``use_kernel`` picks the hand-written CUDA kernels (K1
-``fused_gwc_warp``, P1 ``deform_conv2d``, K3 ``lift_splat_fused``); None
-means "the kernels when the tensors are on CUDA". The model is built with
+``fused_gwc_warp``, P1 ``deform_conv2d``, K3 ``lift_splat_fused``, and
+under the Mask2Former head ``msdeform_attn_3d``); None means "the kernels
+when the tensors are on CUDA". The model is built with
 ``conv3d_kernel=True`` to send the hourglass and ResNet3D convs the JAX
 package's gate picks to K4 (``layers.Conv3d``).
 
@@ -357,11 +358,12 @@ class BEVDepthOccupancy(nn.Module):
         return self.bev_outputs(voxel_feat)[0]
 
     def bev_outputs(self, voxel_feat, points=None, img_feats=None,
-                    points_uv=None):
+                    points_uv=None, use_kernel=None):
         """-> (logits [B, classes, X, Y, Z], point logits [B, P, classes]
         or None, CRP relation logits or None); the point branch runs where
         ``points`` are given. The Mask2Former head gives its output dict
-        (``cls_logits``, ``mask_logits``, ``aux``) in the logits' place."""
+        (``cls_logits``, ``mask_logits``, ``aux``) in the logits' place;
+        ``use_kernel`` goes to its deformable attention."""
         cp = self.cfg.bev_with_cp
         with span("stereoscene.bev"):
             outs = remat(cp, self.img_bev_encoder_backbone, voxel_feat)
@@ -370,7 +372,8 @@ class BEVDepthOccupancy(nn.Module):
                 outs, crp_logits = outs
             if self.mask_head:  # channels-last levels, high-res first
                 return self.pts_bbox_head(
-                    [f.permute(0, 2, 3, 4, 1) for f in outs]), None, crp_logits
+                    [f.permute(0, 2, 3, 4, 1) for f in outs],
+                    use_kernel), None, crp_logits
             fused = remat(cp, self.img_bev_encoder_neck, outs)
             if self.cfg.supervise_points and points is not None:
                 points_out = self.pts_bbox_head.forward_points(
@@ -437,7 +440,7 @@ class BEVDepthOccupancy(nn.Module):
             if "points_uv" in batch:
                 points_uv = batch["points_uv"][..., :2]
         logits, output_points, crp_logits = self.bev_outputs(
-            voxel_feat, points, feat_left, points_uv)
+            voxel_feat, points, feat_left, points_uv, use_kernel)
         if self.mask_head:
             out = {"cls_logits": logits["cls_logits"],
                    "mask_logits": logits["mask_logits"],

@@ -4,8 +4,9 @@ mask2former_occ.py:22-449, pixel_decoders/occupancy_pixel_decoder.py).
 
 - ``OccPixelDecoder3D``: the lowest-resolution levels are projected, given
   3D sine + level positional encodings and refined by 3D multi-scale
-  deformable self-attention layers (``ops.msdeform_attn_3d``, plain
-  gathers as in JAX); the remaining high-res levels are fused FPN-style.
+  deformable self-attention layers (``ops.msdeform_attn_3d``: plain
+  gathers as in JAX, or its CUDA kernel); the remaining high-res levels are
+  fused FPN-style.
 - ``Mask2FormerOccHead``: learned queries decoded against the multi-scale
   memories round-robin, with masked cross-attention (the previous layer's
   mask logits resampled to the level, ``< 0`` masked, detached; a fully
@@ -122,9 +123,11 @@ class DeformableEncoderLayer3D(nn.Module):
         self.norm2 = LayerNorm32(embed_dim)
         self.ffn = FFN(embed_dim, embed_dim * ffn_ratio)
 
-    def forward(self, tokens, pos, ref_points, spatial_shapes):
+    def forward(self, tokens, pos, ref_points, spatial_shapes,
+                use_kernel=None):
         """tokens [B, V, C]; pos [V, C]; ref_points [V, 3] in [0, 1];
-        spatial_shapes the static (X, Y, Z) of each level."""
+        spatial_shapes the static (X, Y, Z) of each level; ``use_kernel``
+        goes to ``msdeform_attn_3d``."""
         b, v, _ = tokens.shape
         h, p, lv = self.num_heads, self.num_points, self.num_levels
         q = tokens + pos[None].to(tokens.dtype)
@@ -138,7 +141,8 @@ class DeformableEncoderLayer3D(nn.Module):
         loc = (ref_points.float()[None, :, None, None, None, :]
                + offsets.float() / norm[None, None, None, :, None, :])
         out = self.output_proj(
-            msdeform_attn_3d(value, spatial_shapes, loc, weights, h))
+            msdeform_attn_3d(value, spatial_shapes, loc, weights, h,
+                             use_kernel))
         tokens = self.norm1(tokens + out)
         return self.norm2(self.ffn(tokens))
 
@@ -178,7 +182,7 @@ class OccPixelDecoder3D(nn.Module):
             setattr(self, f"output_gn{i}", GroupNorm32(groups, c))
         self.mask_feature = nn.Linear(c, out_channels)
 
-    def forward(self, feats):
+    def forward(self, feats, use_kernel=None):
         n_levels, n_enc = self.n_levels, self.n_enc
         if len(feats) != n_levels:
             raise ValueError(f"{len(feats)} levels, built for {n_levels}")
@@ -203,7 +207,8 @@ class OccPixelDecoder3D(nn.Module):
         pos = torch.cat(poss, dim=0)
         ref = torch.cat(refs, dim=0)
         for li in range(self.num_encoder_layers):
-            tok = getattr(self, f"encoder{li}")(tok, pos, ref, shapes)
+            tok = getattr(self, f"encoder{li}")(tok, pos, ref, shapes,
+                                                use_kernel)
 
         outs = []
         offset = 0
@@ -362,10 +367,13 @@ class Mask2FormerOccHead(nn.Module):
             attn_mask = (m < 0.0).reshape(q.shape[0], self.num_queries, -1)
         return cls_logits, mask_logits, attn_mask
 
-    def forward(self, voxel_feats):
+    def forward(self, voxel_feats, use_kernel=None):
+        """``use_kernel`` goes to the pixel decoder's ``msdeform_attn_3d``
+        (None: its CUDA kernel on CUDA tensors). The kernel has no backward:
+        a forward on CUDA under grad mode passes ``use_kernel=False``."""
         feats = self.pyramid(voxel_feats)
         with span("stereoscene.head.encoder"):
-            mask_feats, memories = self.pixel_decoder(feats)
+            mask_feats, memories = self.pixel_decoder(feats, use_kernel)
         with span("stereoscene.head.decoder"):
             return self.decode(mask_feats, memories)
 

@@ -18,7 +18,9 @@ only switch.
   decoder, and ``.head.decoder``, the query decoder's predictions and
   layers) and ``.classmap``; ``stereoscene.msdeform`` opens at each call
   of the 3D deformable attention (``ops.msdeform_attn.msdeform_attn_3d``),
-  wherever it is called from; the stage spans open in training too, and a
+  wherever it is called from, and holds ``stereoscene.msdeform.kernel``
+  around the launch where the call takes the CUDA kernel
+  (``csrc/msdeform.cu``); the stage spans open in training too, and a
   checkpointed block's recompute opens them again inside the backward;
 - training, once a step: ``stereoscene.forward`` (the model and the
   losses), ``stereoscene.backward`` (``torch.autograd.grad``),
@@ -50,6 +52,7 @@ SPANS = (
     "stereoscene.head.encoder",
     "stereoscene.head.decoder",
     "stereoscene.msdeform",
+    "stereoscene.msdeform.kernel",
     "stereoscene.classmap",
     "stereoscene.forward",
     "stereoscene.backward",
